@@ -1,0 +1,98 @@
+"""Collate: sample dicts -> bucketed ``Batch`` of CPU tensors.
+
+Text and mel lengths are rounded up to fixed multiples, so the kernels see
+one shape per bucket instead of one per raw length.  Mels ship as fp32.
+"""
+
+from typing import Any, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..utils.tools import pad_1d, pad_2d, bucket_length
+
+TEXT_BUCKET = 32
+MEL_BUCKET = 128
+
+
+class Batch(NamedTuple):
+    """Typed equivalent of the reference 12-tuple (``lightning/collate.py``)."""
+    speaker_args: Any             # (B,) int32
+    texts: Any                    # (B, L) int32
+    src_lens: Any                 # (B,) int32
+    mels: Optional[Any] = None    # (B, T, n_mels) float32
+    mel_lens: Optional[Any] = None
+    p_targets: Optional[Any] = None
+    e_targets: Optional[Any] = None
+    d_targets: Optional[Any] = None
+
+    def to(self, device):
+        return Batch(*(None if t is None else t.to(device) for t in self))
+
+
+class CollateMeta:
+    """Host-side companion of a Batch (ids / raw text)."""
+
+    def __init__(self, ids, raw_texts, speakers):
+        self.ids = ids
+        self.raw_texts = raw_texts
+        self.speakers = speakers
+
+
+def collate_batch(samples, max_seq_len=1000, with_mels=True):
+    """List of dataset sample dicts -> (Batch, CollateMeta)."""
+    src_lens = np.array([len(s["text"]) for s in samples], np.int32)
+    L = bucket_length(int(src_lens.max()), TEXT_BUCKET)
+    texts = pad_1d([s["text"] for s in samples], L).astype(np.int32)
+
+    speaker_ids = np.array([s["speaker"] for s in samples], np.int32)
+    if "spk_ref_mel_slices" in samples[0]:
+        raise NotImplementedError(
+            "reference-mel speaker slices (d-vector modes) wait for the "
+            "GE2E speaker modes, ROADMAP Queue 1 item 11")
+    meta = CollateMeta([s["id"] for s in samples],
+                       [s["raw_text"] for s in samples], speaker_ids)
+    t = torch.from_numpy
+
+    if not with_mels or "mel" not in samples[0]:
+        return Batch(speaker_args=t(speaker_ids), texts=t(texts),
+                     src_lens=t(src_lens)), meta
+
+    mel_lens = np.array([s["mel"].shape[0] for s in samples], np.int32)
+    T = bucket_length(int(mel_lens.max()), MEL_BUCKET, max_seq_len)
+    mel_lens = np.minimum(mel_lens, T)
+    mels = pad_2d([s["mel"] for s in samples], T).astype(np.float32)
+    pitches = pad_1d([s["pitch"] for s in samples],
+                     L if samples[0]["pitch"].shape[0] == len(samples[0]["text"])
+                     else T)
+    energies = pad_1d([s["energy"] for s in samples],
+                      L if samples[0]["energy"].shape[0] == len(samples[0]["text"])
+                      else T)
+    durations = pad_1d([s["duration"] for s in samples], L).astype(np.int32)
+    # clamp durations so cumulative length fits the mel bucket
+    durations = _clamp_durations(durations, mel_lens)
+
+    return Batch(
+        speaker_args=t(speaker_ids),
+        texts=t(texts),
+        src_lens=t(src_lens),
+        mels=t(mels),
+        mel_lens=t(mel_lens),
+        p_targets=t(pitches),
+        e_targets=t(energies),
+        d_targets=t(durations),
+    ), meta
+
+
+def _clamp_durations(durations, mel_lens):
+    """Ensure sum(d) == mel_len per sample (mel may be truncated to bucket)."""
+    out = durations.copy()
+    for i in range(out.shape[0]):
+        cum = np.cumsum(out[i])
+        over = cum > mel_lens[i]
+        if over.any():
+            j = int(np.argmax(over))
+            prev = cum[j] - out[i, j]
+            out[i, j] = mel_lens[i] - prev
+            out[i, j + 1:] = 0
+    return out

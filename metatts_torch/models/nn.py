@@ -1,0 +1,178 @@
+"""Layers with the JAX package's precision policy, as ``nn.Module``s.
+
+Parameters live in fp32.  A product "in the compute dtype" rounds its
+inputs to that dtype:
+
+* ``Linear`` returns fp32 (the JAX ``preferred_element_type=float32``), so
+  it rounds the inputs and multiplies in fp32, which gives the same
+  products of bf16 values, accumulated in fp32;
+* ``Conv1d`` / ``ConvTranspose1d`` return the compute dtype's rounding,
+  cast to fp32, as the JAX convs do, and add the bias in fp32.
+
+Module and parameter names follow the reference's torch state dict
+(``weight`` / ``bias``, conv kernels (out, in, k), transposed-conv kernels
+(in, out, k), linear weights (out, in)).
+"""
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def dtype(name):
+    """Config dtype name -> torch dtype."""
+    return _DTYPES[name]
+
+
+def round_to(x, cdtype):
+    """x rounded to ``cdtype`` and back to fp32 (identity for fp32)."""
+    return x.float() if cdtype == torch.float32 else x.to(cdtype).float()
+
+
+def _uniform(t, scale, generator):
+    with torch.no_grad():
+        t.copy_(torch.rand(t.shape, generator=generator) * (2 * scale) - scale)
+
+
+class Linear(nn.Module):
+    def __init__(self, d_in, d_out, bias=True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(d_out, d_in))
+        self.bias = nn.Parameter(torch.empty(d_out)) if bias else None
+
+    def reset_parameters(self, generator):
+        s = 1.0 / math.sqrt(self.weight.shape[1])
+        _uniform(self.weight, s, generator)
+        if self.bias is not None:
+            _uniform(self.bias, s, generator)
+
+    def forward(self, x, cdtype=torch.float32, out_dtype=torch.float32):
+        y = round_to(x, cdtype) @ round_to(self.weight, cdtype).T
+        if self.bias is not None:
+            y = y + self.bias
+        return y.to(out_dtype)
+
+
+class Embedding(nn.Embedding):
+    """Plain lookup table, N(0, 1) init with an optional zero padding row
+    (the row is only zeroed at init, as in the JAX package)."""
+
+    def __init__(self, n, d, padding_row=None):
+        super().__init__(n, d)
+        self.padding_row = padding_row
+
+    def reset_parameters(self, generator=None):
+        if generator is None:        # nn.Embedding.__init__ calls this
+            return
+        with torch.no_grad():
+            self.weight.copy_(torch.randn(self.weight.shape, generator=generator))
+            if self.padding_row is not None:
+                self.weight[self.padding_row] = 0.0
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm with fp32 statistics (population variance, eps 1e-5)."""
+
+    def __init__(self, d):
+        super().__init__(d, eps=1e-5)
+
+    def forward(self, x, out_dtype=torch.float32):
+        return super().forward(x.float()).to(out_dtype)
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm over (B, T, C), reducing (B, T).  Eval uses the running
+    state; training normalises with the batch's population variance and
+    updates the running state with momentum 0.1 (JAX package semantics)."""
+
+    def __init__(self, d, momentum=0.1, eps=1e-5):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.ones(d))
+        self.bias = nn.Parameter(torch.zeros(d))
+        self.register_buffer("running_mean", torch.zeros(d))
+        self.register_buffer("running_var", torch.ones(d))
+
+    def forward(self, x):
+        x = x.float()
+        if self.training:
+            mean = x.mean((0, 1))
+            var = x.var((0, 1), unbiased=False)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1 - m).add_(m * mean)
+                self.running_var.mul_(1 - m).add_(m * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        return (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+
+
+class Conv1d(nn.Module):
+    """1-D conv over (B, T, C) with SAME padding; kernel (out, in, k)."""
+
+    def __init__(self, c_in, c_out, k, bias=True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(c_out, c_in, k))
+        self.bias = nn.Parameter(torch.empty(c_out)) if bias else None
+
+    def reset_parameters(self, generator):
+        s = 1.0 / math.sqrt(self.weight.shape[1] * self.weight.shape[2])
+        _uniform(self.weight, s, generator)
+        if self.bias is not None:
+            _uniform(self.bias, s, generator)
+
+    def forward(self, x, cdtype=torch.float32, dilation=1,
+                out_dtype=torch.float32):
+        y = conv1d_nct(self, x.transpose(1, 2), cdtype, dilation,
+                       padding=dilation * (self.weight.shape[-1] - 1) // 2)
+        return y.transpose(1, 2).to(out_dtype)
+
+
+def conv1d_nct(m, x, cdtype=torch.float32, dilation=1, padding=0):
+    """Conv over (B, C, T) with explicit zero padding; fp32 out."""
+    y = F.conv1d(x.to(cdtype), m.weight.to(cdtype), None, padding=padding,
+                 dilation=dilation).float()
+    if m.bias is not None:
+        y = y + m.bias[:, None]
+    return y
+
+
+class ConvTranspose1d(Conv1d):
+    """Transposed conv; kernel (in, out, k), torch-style int padding."""
+
+    def __init__(self, c_in, c_out, k, bias=True):
+        nn.Module.__init__(self)
+        self.weight = nn.Parameter(torch.empty(c_in, c_out, k))
+        self.bias = nn.Parameter(torch.empty(c_out)) if bias else None
+
+    def reset_parameters(self, generator):
+        s = 1.0 / math.sqrt(self.weight.shape[0] * self.weight.shape[2])
+        _uniform(self.weight, s, generator)
+        if self.bias is not None:
+            _uniform(self.bias, s, generator)
+
+    def forward(self, x, stride, cdtype=torch.float32, padding=0):
+        """x: (B, C, T) -> (B, C_out, T') fp32."""
+        y = F.conv_transpose1d(x.to(cdtype), self.weight.to(cdtype), None,
+                               stride=stride, padding=padding).float()
+        if self.bias is not None:
+            y = y + self.bias[:, None]
+        return y
+
+
+def reset_parameters(module, generator):
+    """Random init of every layer in ``module`` from ``generator`` (CPU),
+    with the JAX package's distributions: uniform(+-1/sqrt(fan_in)) for
+    linears and convs, N(0, 1) for embeddings, ones/zeros for norms."""
+    for m in module.modules():
+        if isinstance(m, (Linear, Conv1d, Embedding)):
+            m.reset_parameters(generator)
+        elif isinstance(m, (LayerNorm, BatchNorm)):
+            with torch.no_grad():
+                m.weight.fill_(1.0)
+                m.bias.fill_(0.0)

@@ -1,0 +1,69 @@
+"""Port: ``metatts_torch`` and ``chip_smoke.py`` import with JAX blocked, and
+nothing of the port names the JAX package or imports JAX."""
+
+import ast
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "metatts_torch")
+
+
+def _port_files():
+    for d, _, files in os.walk(PKG):
+        if os.path.basename(d) in ("build", "__pycache__"):
+            continue
+        for f in files:
+            if f.endswith((".py", ".cu", ".cuh", ".h")):
+                yield os.path.join(d, f)
+
+
+def _modules():
+    mods = []
+    for path in _port_files():
+        if path.endswith(".py"):
+            rel = os.path.relpath(path, ROOT)[:-3].replace(os.sep, ".")
+            mods.append(rel[:-len(".__init__")] if rel.endswith("__init__") else rel)
+    return sorted(mods)
+
+
+def test_port_and_smoke_import_without_jax():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"          # any `import jax` now raises
+        "import importlib\n"
+        f"for m in {_modules() + ['chip_smoke']!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m, mod in sys.modules.items() if mod is not None "
+        "and m.split('.')[0] in ('jax', 'metatts_tpu', 'yaml'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("path", sorted(os.path.relpath(p, ROOT)
+                                        for p in _port_files()))
+def test_port_file_names_no_jax(path):
+    with open(os.path.join(ROOT, path)) as f:
+        text = f.read()
+    assert not re.search(r"metatts_tpu|\bjax\b", text), path
+
+
+def test_smoke_imports_nothing_of_jax():
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    assert names and not [n for n in names
+                          if n.split(".")[0] in ("jax", "metatts_tpu")]
