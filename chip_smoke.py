@@ -5,7 +5,8 @@
 
 Phases, each of which fails the run (non-zero exit) when it goes wrong:
 
-1. build   -- compiles ``metatts_torch/csrc/fftblock.cu`` for sm_90a;
+1. build   -- compiles ``metatts_torch/csrc/fftblock.cu`` and
+              ``flash_attention.cu`` for sm_90a, one nvcc each, in parallel;
 2. kernel  -- the fused FFT-block kernel against its plain PyTorch version
               at the base width (D=256, 2 heads, F=1024, k=9) for
               (B=8, T=1000) with lengths 1000, 777 and 0 among the rows,
@@ -13,7 +14,13 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
               to garbage in padded rows, no NaN; kernel / plain / bound ms;
               a width that passes the fused gate but not the kernel's
               limits (D=512) raises instead of running another version;
-3. serve   -- ``SynthesisEngine`` at the base configuration (the port's
+3. flash   -- the flash-attention forward and backward kernels against
+              their plain versions at the training slice's shapes, bf16
+              (BH=10, D=128, T=896 and T=128) and a ragged fp32 case
+              (T=77), with rows fully valid, partly padded and fully
+              padded, at the TPU kernel's own test tolerances; kernel,
+              plain, bound and scaled_dot_product_attention ms;
+4. serve   -- ``SynthesisEngine`` at the base configuration (the port's
               defaults, equal to config/model/base.yaml,
               config/preprocess/LibriTTS.yaml and
               config/algorithm/meta_emb_vad.yaml; bf16 compute and
@@ -24,7 +31,17 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
               forward through the plain version; ms per call, real-time
               factor, and the split between acoustic model, fused blocks
               and vocoder;
-4. report  -- one JSON line of kernels, then the card's name and power
+5. train   -- ``MetaSystem.train_step`` at the same base configuration
+              (second-order MAML, 5 inner SGD steps, custom-HVP) on
+              ``bench.py``'s workload: one episode of 5 support and 5 query
+              utterances, 128 symbols, 896 mel frames, synthetic from a
+              seed; exactly 10 flash forward and 10 flash backward launches
+              per step, finite losses, parameters that move, BatchNorm
+              running statistics untouched, and one meta-gradient through
+              the kernels against the same step through the plain versions;
+              ms per step, mel frames/s, peak memory; then one first-order
+              ``validation_step``;
+6. report  -- one JSON line of kernels, then the card's name and power
               limit, then the result line.
 
 It exits with an error and prints no result where no CUDA device is
@@ -32,19 +49,35 @@ available, or where the ``metatts_torch`` package is not beside it.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 BASE_SHAPE = dict(D=256, H=2, F=1024, K=9)
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 (data sheet)
+PEAK_FP32_FLOPS = 67e12       # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 REL_TOL = 5e-3                # max|kernel - plain| / max|plain|, as the TPU
                               # kernel's own test holds it against XLA
 INVARIANCE_TOL = 1e-5
+# relative L2 gap of gradients through the flash kernels against the same
+# computation through their plain versions.  At the kernel the two agree
+# to rounding (fp32 ~4e-7, bf16 one ulp of dq/dk), but at random init the
+# model's gradient amplifies any rounding: the postnet's batch-statistics
+# BatchNorms dominate the gap, and switching the query attention between
+# two plain implementations of the same math (einsum with bf16 scores and
+# softmax, as the JAX package rounds, against the flash plain version)
+# moves the bf16 gradient by ~0.09 and the meta-gradient (5 inner steps
+# whose HVPs are large) by ~0.12.  The tolerances hold the kernels to that
+# order, with the fp32 path much tighter.
+GRAD_TOL_F32 = 2e-3
+GRAD_TOL = 0.25
+META_GRAD_TOL = 0.3
 SENTENCES = [
     "The quick brown fox jumps over the lazy dog.",
     "She sells sea shells by the sea shore, and the shells she sells are surely sea shells.",
@@ -91,18 +124,27 @@ def block_bound(B, T, D, H, F, K):
             else "bytes", flops, nbytes)
 
 
+KERNEL_SOURCES = ("fftblock", "flash_attention")
+
+
 def phase_build():
-    from metatts_torch.ops import _build, fftblock
+    from metatts_torch.ops import _build, attention, fftblock
     t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        list(pool.map(_build.build, KERNEL_SOURCES))
     fftblock._lib()
-    print(f"[build] fftblock.cu: {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {_build.build_seconds.get('fftblock', 0.0):.2f} s)")
-    log = os.path.join(_build.BUILD_DIR, "fftblock.log")
-    if os.path.exists(log):
-        with open(log) as f:
-            for line in f:
-                if "registers" in line or "spill" in line:
-                    print("[build] " + line.strip())
+    attention._lib()
+    print(f"[build] {', '.join(n + '.cu' for n in KERNEL_SOURCES)} in parallel: "
+          f"{time.perf_counter() - t0:.2f} s (nvcc "
+          + ", ".join(f"{n} {_build.build_seconds.get(n, 0.0):.2f} s"
+                      for n in KERNEL_SOURCES) + ")")
+    for name in KERNEL_SOURCES:
+        log = os.path.join(_build.BUILD_DIR, name + ".log")
+        if os.path.exists(log):
+            with open(log) as f:
+                for line in f:
+                    if "registers" in line or "spill" in line:
+                        print(f"[build] {name}: " + line.strip())
 
 
 def _block(D, H, F, K, gen):
@@ -338,6 +380,337 @@ def breakdown(eng, texts, speakers, reps=3):
           f"vocoder + copy to host {1e3 * voc_s / reps:.2f} ms")
 
 
+# ---------------------------------------------------------------- flash
+
+FLASH_SHAPES = ((10, 896, 128, "bfloat16"), (10, 128, 128, "bfloat16"),
+                (4, 77, 128, "float32"))
+
+
+def flash_bound(BH, T, D, dtype, backward):
+    """(bound_ms, bound_by, flops, bytes) of one flash call: each input read
+    once, each output written once.  Forward: q k^T and P v; backward:
+    q k^T, dv, dp, dq, dk (the recomputed P included)."""
+    e = 2 if dtype == "bfloat16" else 4
+    flops = (10 if backward else 4) * BH * T * T * D
+    if backward:   # q, k, v, mask, out, lse, dout in; dq, dk, dv out
+        nbytes = 3 * BH * T * D * e + BH * T * 4 + BH * T * D * 4 + BH * T * 4 \
+            + BH * T * D * 4 + 3 * BH * T * D * e
+    else:          # q, k, v, mask in; out, lse out
+        nbytes = 3 * BH * T * D * e + BH * T * 4 + BH * T * D * 4 + BH * T * 4
+    peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_FP32_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", flops, nbytes)
+
+
+def _flash_inputs(BH, T, D, dtype, gen):
+    import torch
+    q, k, v = (torch.randn(BH, T, D, generator=gen) * s for s in (0.5, 0.5, 1.0))
+    lens = torch.randint(1, T + 1, (BH,), generator=gen)
+    lens[0], lens[1], lens[2] = T, max(1, T // 3), 0   # full, padded, empty
+    mask = (torch.arange(T)[None, :] < lens[:, None]).float()
+    do = torch.randn(BH, T, D, generator=gen)
+    dt = getattr(torch, dtype)
+    return ([x.to(dt).cuda() for x in (q, k, v)], mask.cuda(), do.cuda())
+
+
+def check_flash(BH, T, D, dtype, gen):
+    """Both kernels against their plain versions on one input; raises on
+    disagreement.  Tolerances of tests/test_pallas_attention.py."""
+    import torch
+    from metatts_torch.ops import attention as A
+    (q, k, v), mask, do = _flash_inputs(BH, T, D, dtype, gen)
+    out, lse = A.flash_attention_fwd(q, k, v, mask)
+    ref, ref_lse = A.flash_attention_fwd_plain(q, k, v, mask)
+    grads = A.flash_attention_bwd(q, k, v, mask, ref, ref_lse, do)
+    ref_grads = A.flash_attention_bwd_plain(q, k, v, mask, ref, ref_lse, do)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    g_err = [(a.float() - b.float()).abs().max().item() for a, b in zip(grads, ref_grads)]
+    g_rel = [e / (b.float().abs().max().item() + 1e-9) for e, b in zip(g_err, ref_grads)]
+    finite = all(bool(torch.isfinite(t.float()).all()) for t in (out, lse, *grads))
+    if dtype == "float32":
+        ok = (bool(torch.allclose(out, ref, atol=2e-5, rtol=1e-4))
+              and bool(torch.allclose(lse, ref_lse, atol=2e-5, rtol=1e-4))
+              and all(bool(torch.allclose(a, b, atol=5e-4, rtol=1e-3))
+                      for a, b in zip(grads, ref_grads)))
+        tol = "out atol 2e-5 rtol 1e-4, grads atol 5e-4 rtol 1e-3"
+    else:
+        ok = err < 3e-2 and lse_err < 3e-2 and max(g_rel) < 0.05
+        tol = "out max abs < 3e-2, grads rel < 0.05"
+    print(f"[flash] BH={BH} T={T} D={D} {dtype}: out max_abs_err {err:.3e} lse "
+          f"{lse_err:.3e}; dq/dk/dv max_abs_err "
+          f"{', '.join(f'{e:.3e}' for e in g_err)} rel "
+          f"{', '.join(f'{r:.3e}' for r in g_rel)}; finite {finite} ({tol})")
+    if not (ok and finite):
+        raise AssertionError(f"flash attention disagrees with its plain version "
+                             f"at BH={BH} T={T} D={D} {dtype}")
+    return (q, k, v), mask, do, ref, ref_lse, err, max(g_err)
+
+
+def phase_flash():
+    import torch
+    import torch.nn.functional as F
+    from metatts_torch.ops import attention as A
+
+    gen = torch.Generator().manual_seed(1)
+    results = {}
+    for BH, T, D, dtype in FLASH_SHAPES:
+        (q, k, v), mask, do, o, lse, f_err, b_err = check_flash(BH, T, D, dtype, gen)
+        fwd_ms = cuda_ms(lambda: A.flash_attention_fwd(q, k, v, mask))
+        bwd_ms = cuda_ms(lambda: A.flash_attention_bwd(q, k, v, mask, o, lse, do))
+        fwd_plain = cuda_ms(lambda: A.flash_attention_fwd_plain(q, k, v, mask),
+                            iters=5, warmup=1)
+        bwd_plain = cuda_ms(lambda: A.flash_attention_bwd_plain(q, k, v, mask, o, lse, do),
+                            iters=5, warmup=1)
+        # yardstick, never on the port's path: the same masked attention in
+        # one PyTorch call, forward, and its backward alone
+        bias = ((mask - 1.0) * 1e9)[:, None, :].to(q.dtype)
+        qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+        sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias))
+        sout = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=bias)
+        dos = do.to(q.dtype)
+        sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(sout, (qs, ks, vs), dos,
+                                                       retain_graph=True))
+        fb = flash_bound(BH, T, D, dtype, False)
+        bb = flash_bound(BH, T, D, dtype, True)
+        print(f"[flash] BH={BH} T={T} D={D} {dtype}: forward kernel {fwd_ms:.4f} ms, "
+              f"plain {fwd_plain:.4f} ms, bound {fb[0]:.4f} ms ({fb[1]}; "
+              f"{fb[2] / 1e9:.2f} GFLOP, {fb[3] / 1e6:.2f} MB), sdpa {sdpa_fwd:.4f} ms, "
+              f"{fb[2] / fwd_ms / 1e9:.1f} TFLOP/s")
+        print(f"[flash] BH={BH} T={T} D={D} {dtype}: backward kernel {bwd_ms:.4f} ms, "
+              f"plain {bwd_plain:.4f} ms, bound {bb[0]:.4f} ms ({bb[1]}; "
+              f"{bb[2] / 1e9:.2f} GFLOP, {bb[3] / 1e6:.2f} MB), sdpa backward "
+              f"{sdpa_bwd:.4f} ms, {bb[2] / bwd_ms / 1e9:.1f} TFLOP/s")
+        results[(BH, T, D, dtype)] = dict(
+            fwd=dict(max_abs_err=f_err, ms=fwd_ms, plain_ms=fwd_plain, bound_ms=fb[0],
+                     bound_by=fb[1], library_ms=sdpa_fwd),
+            bwd=dict(max_abs_err=b_err, ms=bwd_ms, plain_ms=bwd_plain, bound_ms=bb[0],
+                     bound_by=bb[1], library_ms=sdpa_bwd))
+    # a width the kernels do not take raises instead of running another version
+    x = torch.zeros(2, 32, 136, device="cuda")
+    try:
+        A.flash_attention_fwd(x, x, x, torch.ones(2, 32, device="cuda"))
+    except ValueError as e:
+        print(f"[flash] D=136 refused: {e}")
+    else:
+        raise AssertionError("flash_attention_fwd ran a D=136 input")
+    return results
+
+
+# ---------------------------------------------------------------- train
+
+SHOTS, QUERIES, SRC_LEN, MEL_LEN, INNER_STEPS, EPISODES = 5, 5, 128, 896, 5, 1
+N_SPEAKERS = 256
+TIMED_STEPS = 3
+
+
+def episode_batch(rng, E, B, L, T, n_mels, n_speakers):
+    """Synthetic episodes stacked on a leading axis E, made as ``bench.py``
+    makes them: durations 1 .. T // L - 1 per symbol, mel length their sum
+    (at most T), random mels, pitch, energy, symbols and one speaker id per
+    utterance."""
+    import numpy as np
+    import torch
+    from metatts_torch.data.collate import Batch
+    fields = []
+    for _ in range(E):
+        d = rng.randint(1, max(2, T // L), size=(B, L)).astype(np.int32)
+        fields.append((
+            rng.randint(0, n_speakers, (B,)).astype(np.int32),
+            rng.randint(1, 360, (B, L)).astype(np.int32),
+            np.full((B,), L, np.int32),
+            rng.randn(B, T, n_mels).astype(np.float32),
+            np.minimum(d.sum(1), T).astype(np.int32),
+            rng.randn(B, L).astype(np.float32),
+            rng.randn(B, L).astype(np.float32),
+            d))
+    return Batch(*(torch.from_numpy(np.stack(f)) for f in zip(*fields)))
+
+
+def rel_l2(a, b):
+    """||a - b|| / ||b|| over all tensors of two name -> gradient dicts."""
+    names = [n for n in b if b[n] is not None]
+    num = sum(float(((a[n] - b[n]).double() ** 2).sum()) for n in names)
+    den = sum(float((b[n].double() ** 2).sum()) for n in names)
+    return math.sqrt(num / den)
+
+
+def top_gaps(a, b, n=4):
+    """The n tensors with the largest ||a - b||, with ||b||."""
+    gaps = sorted(((float((a[k] - b[k]).double().norm()), float(b[k].double().norm()), k)
+                   for k in b if b[k] is not None), reverse=True)[:n]
+    return ", ".join(f"{k} {d:.3g} of {r:.3g}" for d, r, k in gaps)
+
+
+def profile_step(system, sup, qry):
+    """Device time of one meta step by kernel name (torch.profiler), and
+    the step's wall time; the share of the wall time the card was idle."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        system.train_step(sup, qry)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    attr = "self_device_time_total" if events and hasattr(events[0], "self_device_time_total") \
+        else "self_cuda_time_total"
+    busy = sum(getattr(e, attr) for e in events) / 1e3
+    if busy == 0.0:
+        print("[train] profile: no device time in the trace (not measured)")
+        return
+    print(f"[train] profile of one step: wall {wall:.1f} ms, device busy {busy:.1f} ms "
+          f"(kernel time summed), idle share {max(0.0, 1 - busy / wall):.3f}; "
+          f"{sum(e.count for e in events)} kernel launches")
+    for e in sorted(events, key=lambda e: -getattr(e, attr))[:10]:
+        print(f"[train]   {getattr(e, attr) / 1e3:9.2f} ms {e.count:6d}x  {e.key[:90]}")
+
+
+def phase_train():
+    import copy
+    import numpy as np
+    import torch
+    from metatts_torch import config as C
+    from metatts_torch.algorithms.meta import MetaSystem, episode
+    from metatts_torch.ops import attention as A
+
+    pcfg, mcfg, acfg = C.base_configs()
+    acfg["adapt"]["train"].update(shots=SHOTS, queries=QUERIES, steps=INNER_STEPS)
+    tcfg = copy.deepcopy(C.TRAIN_DEFAULTS)
+    system = MetaSystem(pcfg, mcfg, tcfg, acfg, n_speakers=N_SPEAKERS, seed=0,
+                        device="cuda")
+    n_mels = pcfg["preprocessing"]["mel"]["n_mel_channels"]
+    rng = np.random.RandomState(0)
+    sup = episode_batch(rng, EPISODES, SHOTS, SRC_LEN, MEL_LEN, n_mels, N_SPEAKERS).to("cuda")
+    qry = episode_batch(rng, EPISODES, QUERIES, SRC_LEN, MEL_LEN, n_mels, N_SPEAKERS).to("cuda")
+    n_layers = (mcfg["transformer"]["encoder_layer"]
+                + mcfg["transformer"]["decoder_layer"])
+    frames = int(sup.mel_lens.sum()) * INNER_STEPS + int(qry.mel_lens.sum())
+
+    bn = {k: v.clone() for k, v in system.model.state_dict().items() if "running" in k}
+    before = {n: p.detach().clone() for n, p in system.params.items()}
+
+    # gradients through the kernels against the same computation through
+    # the plain versions: same weights, batch and dropout seed
+    seed = 1234
+    kernels = (A.flash_attention_fwd, A.flash_attention_bwd)
+
+    def through(plain, fn):
+        if plain:
+            A.flash_attention_fwd = A.flash_attention_fwd_plain
+            A.flash_attention_bwd = A.flash_attention_bwd_plain
+        try:
+            return fn()
+        finally:
+            A.flash_attention_fwd, A.flash_attention_bwd = kernels
+
+    def query_grad(sys_):      # one training forward + backward of the query set
+        params = sys_.params
+        total, _ = sys_._supervised_loss(params, episode(qry, 0), seed, True)
+        return dict(zip(params, torch.autograd.grad(total, list(params.values()),
+                                                    allow_unused=True)))
+
+    def with_einsum(sys_, fn):
+        stacks = (sys_.model.encoder, sys_.model.decoder)
+        impls = [m.attn_impl for m in stacks]
+        for m in stacks:
+            m.attn_impl = "einsum"
+        try:
+            return fn()
+        finally:
+            for m, impl in zip(stacks, impls):
+                m.attn_impl = impl
+
+    # fp32 compute: the kernels' fp32 path, where only the order of sums differs
+    system32 = MetaSystem(pcfg, dict(mcfg, compute_dtype="float32",
+                                     activation_dtype="float32",
+                                     attention_scores_dtype="float32"),
+                          tcfg, acfg, n_speakers=N_SPEAKERS, seed=0, device="cuda")
+    system32.model.train()
+    gap32 = rel_l2(through(False, lambda: query_grad(system32)),
+                   through(True, lambda: query_grad(system32)))
+    del system32
+    system.model.train()
+    g_k = through(False, lambda: query_grad(system))
+    g_p = through(True, lambda: query_grad(system))
+    g_e = with_einsum(system, lambda: query_grad(system))
+    gap, gap_e = rel_l2(g_k, g_p), rel_l2(g_e, g_p)
+    print(f"[train] query-set gradient (one training forward and backward), kernels "
+          f"vs plain versions: fp32 rel L2 {gap32:.3e} (tolerance {GRAD_TOL_F32:g}); "
+          f"bf16 rel L2 {gap:.3e} (tolerance {GRAD_TOL:g}), and einsum attention "
+          f"(bf16 scores and softmax) vs the plain versions {gap_e:.3e}")
+    print(f"[train]   largest bf16 gaps: {top_gaps(g_k, g_p)}")
+    if not (gap32 < GRAD_TOL_F32 and gap < GRAD_TOL):
+        raise AssertionError("the gradient through the kernels disagrees with the "
+                             "plain versions")
+    meta = lambda: system._meta_train_step(sup, qry, seed)
+    loss_k, grads_k = through(False, meta)
+    loss_p, grads_p = through(True, meta)
+    _, grads_e = with_einsum(system, meta)
+    gap, gap_e = rel_l2(grads_k, grads_p), rel_l2(grads_e, grads_p)
+    loss_gap = abs(float(loss_k.total) - float(loss_p.total)) / abs(float(loss_p.total))
+    print(f"[train] meta-gradient through the kernels vs plain versions: rel L2 "
+          f"{gap:.3e} (tolerance {META_GRAD_TOL:g}); the same step with einsum "
+          f"attention on the query (bf16 scores and softmax) vs the plain versions: "
+          f"{gap_e:.3e}; query loss rel {loss_gap:.3e}")
+    print(f"[train]   largest gaps: {top_gaps(grads_k, grads_p)}")
+    if not (gap < META_GRAD_TOL and loss_gap < 1e-3
+            and all(torch.isfinite(g).all() for g in grads_k.values() if g is not None)):
+        raise AssertionError("the meta-gradient through the kernels disagrees with "
+                             "the plain versions")
+    for n, p in system.params.items():
+        if not torch.equal(p, before[n]):
+            raise AssertionError(f"computing a meta-gradient changed {n}")
+
+    # the main path, counted: one warm-up step, then timed steps
+    system.train_step(sup, qry)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.flash_attention_fwd.launches = A.flash_attention_bwd.launches = 0
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        f0, b0 = A.flash_attention_fwd.launches, A.flash_attention_bwd.launches
+        losses.append(system.train_step(sup, qry))
+        f1, b1 = A.flash_attention_fwd.launches - f0, A.flash_attention_bwd.launches - b0
+        if (f1, b1) != (n_layers, n_layers):
+            raise AssertionError(f"a meta step launched {f1} flash forward and {b1} "
+                                 f"backward kernels, not {n_layers} each")
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / TIMED_STEPS
+    launches = (A.flash_attention_fwd.launches, A.flash_attention_bwd.launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    totals = [float(l.total) for l in losses]
+    if not all(math.isfinite(float(v)) for l in losses for v in l):
+        raise AssertionError(f"non-finite losses {losses}")
+    moved = sum(not torch.equal(p, before[n]) for n, p in system.params.items())
+    if moved < len(before) // 2:
+        raise AssertionError(f"only {moved} of {len(before)} parameters moved")
+    for k, v in bn.items():
+        if not torch.equal(v, system.model.state_dict()[k]):
+            raise AssertionError(f"the meta step wrote the BatchNorm buffer {k}")
+    profile_step(system, sup, qry)
+    # the first-order validation entry point (flash in the inner loop too)
+    val = system.validation_step(episode(sup, 0), episode(qry, 0))
+    if not all(math.isfinite(float(v)) for v in val):
+        raise AssertionError(f"non-finite validation losses {val}")
+    print(f"[train] MetaSystem.validation_step (first order): total loss "
+          f"{float(val.total):.4f}")
+    print(f"[train] MetaSystem.train_step, base config, E={EPISODES}, {SHOTS} support + "
+          f"{QUERIES} query, L={SRC_LEN}, T={MEL_LEN}, {INNER_STEPS} inner steps "
+          f"(custom-HVP): {ms:.2f} ms per step, {frames} mel frames per step, "
+          f"{frames / ms * 1e3:.1f} mel frames/s, peak memory {peak:.2f} GiB; "
+          f"flash launches {launches[0]} forward + {launches[1]} backward over "
+          f"{TIMED_STEPS} steps; total loss {', '.join(f'{t:.4f}' for t in totals)}; "
+          f"{moved} of {len(before)} parameter tensors moved; BatchNorm buffers "
+          f"unchanged")
+    return launches
+
+
 def main():
     try:
         import torch
@@ -359,7 +732,9 @@ def main():
     print(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     phase_build()
     kern = phase_kernel()
+    flash = phase_flash()
     launches = phase_serve()
+    flash_launches = phase_train()
 
     k = kern[1000]
     entry = {
@@ -372,7 +747,19 @@ def main():
         "bound_by": k["bound_by"], "library_ms": None,
         "shape": "B=8 T=1000 D=256 H=2 F=1024 K=9",
     }
-    print(json.dumps({"kernels": [entry]}))
+    main_shape = flash[FLASH_SHAPES[0]]
+    entries = [entry]
+    for i, (name, line) in enumerate((("flash_attention_fwd", 95),
+                                      ("flash_attention_bwd", 129))):
+        r = main_shape["fwd" if i == 0 else "bwd"]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "metatts_torch/csrc/flash_attention.cu",
+            "replaces": f"metatts_tpu/ops/pallas/attention.py:{line}",
+            "launches": flash_launches[i], **r,
+            "shape": "BH=10 T=896 D=128 bf16",
+        })
+    print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,70 @@
+"""MAML system: second-order meta-learning over speaker episodes.
+
+Reference ``lightning/systems/meta.py`` + ``base_adaptor.py``: a training
+step adapts on each episode's support set (5 SGD steps, second order) and
+back-propagates the query loss through the inner loop; the gradient is the
+mean over the episodes, and Adam with the Noam schedule applies it.
+"""
+
+import torch
+
+from ..data.collate import Batch
+from ..models import nn as L
+from ..models.loss import LossValues
+from .base import System
+
+
+def episode(batch, e):
+    """Episode ``e`` of a batch stacked on a leading episode axis."""
+    return Batch(*(None if t is None else t[e] for t in batch))
+
+
+class MetaSystem(System):
+    algorithm_type = "meta"
+
+    def _episode_loss(self, params, sup, qry, seed, train):
+        task = self.acfg["adapt"]["train"]
+        losses, _ = self.adaptor.meta_learn(
+            params, sup, qry, steps=task["steps"], lr=task["lr"], train=train,
+            seed=seed)
+        return losses
+
+    def _meta_train_step(self, sup, qry, seed):
+        """sup / qry: Batches stacked on a leading episode axis E.  Returns
+        (the episodes' mean LossValues, the gradient of the mean total loss
+        as name -> tensor); episode e draws from ``split(seed, E)[e]``.
+        Each episode is differentiated on its own and the gradients summed,
+        so only one episode's graph is alive at a time."""
+        params = self.params
+        names = list(params)
+        n_episodes = sup.texts.shape[0]
+        self.model.train()
+        grads, losses = None, []
+        for e, s in enumerate(L.split(seed, n_episodes)):
+            lv = self._episode_loss(params, episode(sup, e), episode(qry, e), s, True)
+            g = torch.autograd.grad(lv.total / n_episodes,
+                                    [params[n] for n in names], allow_unused=True)
+            grads = g if grads is None else [
+                b if a is None else a if b is None else a + b
+                for a, b in zip(grads, g)]
+            losses.append(LossValues(*(v.detach() for v in lv)))
+        mean = LossValues(*(torch.stack(v).mean() for v in zip(*losses)))
+        return mean, dict(zip(names, grads))
+
+    def train_step(self, sup_batch, qry_batch):
+        """One meta step over episode-stacked support / query Batches.
+        Returns the episodes' mean LossValues."""
+        losses, grads = self._meta_train_step(sup_batch.to(self.device),
+                                              qry_batch.to(self.device),
+                                              self.next_rng())
+        self.apply_updates(grads)
+        return losses
+
+    def validation_step(self, sup_batch, qry_batch):
+        """First-order adaptation on one episode, evaluated on its query
+        (reference ``base_adaptor.py:107``).  Returns LossValues."""
+        self.model.eval()
+        losses = self._episode_loss(self.params, sup_batch.to(self.device),
+                                    qry_batch.to(self.device),
+                                    self.next_rng(), False)
+        return LossValues(*(v.detach() for v in losses))

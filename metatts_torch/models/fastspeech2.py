@@ -55,21 +55,26 @@ class FastSpeech2(nn.Module):
         if generator is not None:
             L.reset_parameters(self, generator)
 
-    def forward(self, batch, *, teacher_forced=None, max_mel_len=None,
+    def forward(self, batch, *, train=None, seed=None, attention_impl=None,
+                update_bn_state=True, teacher_forced=None, max_mel_len=None,
                 p_control=1.0, e_control=1.0, d_control=1.0,
                 average_spk_emb=False, fused_infer=None):
-        """Eval-mode forward -> FS2Output.
+        """Forward -> FS2Output.
 
+        train (default: the module's mode) uses batch statistics in the
+        postnet's BatchNorms and, given a ``seed``, dropout whose masks all
+        derive from that seed (the same seed replays the same masks; no
+        seed, no dropout).  ``update_bn_state=False`` leaves the running
+        statistics as they are.  attention_impl (default: the config's,
+        "auto") is flash | einsum | einsum_remat | auto.
         teacher_forced defaults to "targets present"; pass False to force
         the synthesis path.  max_mel_len caps synthesis length (default: the
         mels' length or ``max_seq_len``).  fused_infer (default: the model
-        config's ``_fused_infer``) runs each FFT block as one fused kernel.
+        config's ``_fused_infer``) runs each FFT block of an eval forward as
+        one fused kernel.
         """
-        if self.training:
-            raise NotImplementedError(
-                "the training forward (dropout, batch statistics) comes with "
-                "the training slice: ROADMAP Queue 1 items 4-5")
         cfg = self.model_cfg
+        train = self.training if train is None else train
         if fused_infer is None:
             fused_infer = cfg.get("_fused_infer", False)
         if teacher_forced is None:
@@ -77,7 +82,7 @@ class FastSpeech2(nn.Module):
         if max_mel_len is None:
             max_mel_len = (batch.mels.shape[1] if batch.mels is not None
                            else cfg["max_seq_len"])
-        if teacher_forced:
+        if train or teacher_forced:
             max_mel_len = min(max_mel_len, cfg["max_seq_len"])
 
         src_valid = get_mask_from_lengths(batch.src_lens, batch.texts.shape[1])
@@ -88,7 +93,9 @@ class FastSpeech2(nn.Module):
             max(cfg["max_seq_len"], max_mel_len) + 1,
             cfg["transformer"]["encoder_hidden"])).to(device)
 
-        x = self.encoder(batch.texts, src_valid, pos_table, fused_infer)
+        r_enc, r_va, r_dec, r_post = L.split(seed, 4)
+        x = self.encoder(batch.texts, src_valid, pos_table, fused_infer,
+                         train=train, seed=r_enc, attn_impl=attention_impl)
 
         spk_emb = None
         if self.speaker_emb is not None:
@@ -107,14 +114,18 @@ class FastSpeech2(nn.Module):
                 p_targets=batch.p_targets if teacher_forced else None,
                 e_targets=batch.e_targets if teacher_forced else None,
                 d_targets=batch.d_targets if teacher_forced else None,
-                p_control=p_control, e_control=e_control, d_control=d_control)
+                p_control=p_control, e_control=e_control, d_control=d_control,
+                train=train, seed=r_va)
 
         if spk_emb is not None:
             x = x + spk_emb[:, None, :]
 
-        x = self.decoder(x, mel_valid, pos_table, fused_infer)
+        x = self.decoder(x, mel_valid, pos_table, fused_infer, train=train,
+                         seed=r_dec, attn_impl=attention_impl)
         mel = self.mel_linear(x, self.cdtype)
-        postnet_mel = mel + self.postnet(mel, self.cdtype)
+        postnet_mel = mel + self.postnet(mel, self.cdtype, train=train,
+                                         seed=r_post,
+                                         update_bn_state=update_bn_state)
         return FS2Output(mel, postnet_mel, p_pred, e_pred, log_d_pred,
                          d_rounded, src_valid, mel_valid, batch.src_lens,
                          mel_lens)

@@ -87,8 +87,10 @@ class LayerNorm(nn.LayerNorm):
 
 class BatchNorm(nn.Module):
     """BatchNorm over (B, T, C), reducing (B, T).  Eval uses the running
-    state; training normalises with the batch's population variance and
-    updates the running state with momentum 0.1 (JAX package semantics)."""
+    state; training normalises with the batch's population variance and,
+    unless ``update_state=False``, updates the running state with momentum
+    0.1 (JAX package semantics: its ``batch_norm`` returns the new state and
+    the meta step never keeps it)."""
 
     def __init__(self, d, momentum=0.1, eps=1e-5):
         super().__init__()
@@ -98,15 +100,17 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(d))
         self.register_buffer("running_var", torch.ones(d))
 
-    def forward(self, x):
+    def forward(self, x, train=None, update_state=True):
+        """``train`` defaults to the module's mode."""
         x = x.float()
-        if self.training:
+        if self.training if train is None else train:
             mean = x.mean((0, 1))
             var = x.var((0, 1), unbiased=False)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.mul_(1 - m).add_(m * mean)
-                self.running_var.mul_(1 - m).add_(m * var)
+            if update_state:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.mul_(1 - m).add_(m * mean)
+                    self.running_var.mul_(1 - m).add_(m * var)
         else:
             mean, var = self.running_mean, self.running_var
         return (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
@@ -163,6 +167,50 @@ class ConvTranspose1d(Conv1d):
         if self.bias is not None:
             y = y + self.bias[:, None]
         return y
+
+
+# ------------------------------------------------------------------ dropout
+
+_M64 = (1 << 64) - 1
+
+
+def fold_in(seed, i):
+    """A new 63-bit seed from ``seed`` and ``i`` (splitmix64), the port's
+    counterpart of JAX's ``random.fold_in``: a forward's dropout streams
+    derive from one seed as the JAX package's derive from one key."""
+    z = (seed * 0x9E3779B97F4A7C15 + i + 1) & _M64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
+    return (z ^ (z >> 31)) >> 1
+
+
+def split(seed, n):
+    """``n`` seeds from one, or ``n`` Nones from None."""
+    return [None if seed is None else fold_in(seed, i) for i in range(n)]
+
+
+def generator(seed, device):
+    """A ``torch.Generator`` on ``device`` seeded with ``seed`` (None: None)."""
+    if seed is None:
+        return None
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return g
+
+
+def dropout(x, rate, train, generator):
+    """Inverted dropout with the keep mask drawn from ``generator``
+    (the JAX package's ``nn.dropout``: identity unless training with a
+    generator and a non-zero rate).  The same generator state gives the same
+    mask, so a forward can be replayed."""
+    if not train or rate == 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    # the keep rate in x's dtype, as JAX's weak typing rounds it
+    scale = torch.tensor(keep, dtype=x.dtype, device=x.device)
+    return torch.where(mask, x / scale, torch.zeros((), dtype=x.dtype,
+                                                    device=x.device))
 
 
 def reset_parameters(module, generator):

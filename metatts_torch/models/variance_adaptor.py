@@ -29,12 +29,16 @@ class VariancePredictor(nn.Module):
         })
         self.linear_layer = L.Linear(f, 1)
 
-    def forward(self, x, valid, cdtype):
+    def forward(self, x, valid, cdtype, *, drop_rate=0.0, train=False,
+                seed=None):
         c = self.conv_layer
+        r1, r2 = L.split(seed, 2)
         h = torch.relu(c["conv1d_1"](x, cdtype))
-        h = c["layer_norm_1"](h)
+        h = L.dropout(c["layer_norm_1"](h), drop_rate, train,
+                      L.generator(r1, x.device))
         h = torch.relu(c["conv1d_2"](h, cdtype))
-        h = c["layer_norm_2"](h)
+        h = L.dropout(c["layer_norm_2"](h), drop_rate, train,
+                      L.generator(r2, x.device))
         out = self.linear_layer(h, cdtype)[..., 0]
         return torch.where(valid, out, torch.zeros((), device=out.device))
 
@@ -57,6 +61,7 @@ class VarianceAdaptor(nn.Module):
         self.pitch_level = pp["pitch"]["feature"]
         self.energy_level = pp["energy"]["feature"]
         self.cdtype = L.dtype(model_cfg.get("compute_dtype", "float32"))
+        self.drop_rate = model_cfg["variance_predictor"]["dropout"]
         self.duration_predictor = VariancePredictor(model_cfg)
         self.pitch_predictor = VariancePredictor(model_cfg)
         self.energy_predictor = VariancePredictor(model_cfg)
@@ -70,8 +75,9 @@ class VarianceAdaptor(nn.Module):
             ve["energy_quantization"])))
 
     def _add_variance(self, predictor, embedding, bins, target, control,
-                      valid, h):
-        pred = predictor(h, valid, self.cdtype)
+                      valid, h, train, seed):
+        pred = predictor(h, valid, self.cdtype, drop_rate=self.drop_rate,
+                         train=train, seed=seed)
         if target is not None:
             value = target
         else:
@@ -82,11 +88,18 @@ class VarianceAdaptor(nn.Module):
 
     def forward(self, x, src_valid, *, max_mel_len, mel_valid=None,
                 p_targets=None, e_targets=None, d_targets=None,
-                p_control=1.0, e_control=1.0, d_control=1.0):
+                p_control=1.0, e_control=1.0, d_control=1.0, train=None,
+                seed=None):
         """Returns (x_expanded, p_pred, e_pred, log_d_pred, d_rounded,
         mel_lens, mel_valid): teacher-forced when targets are given,
-        predicted otherwise (reference ``modules.py:102-159``)."""
-        log_d_pred = self.duration_predictor(x, src_valid, self.cdtype)
+        predicted otherwise (reference ``modules.py:102-159``).  In training
+        (default: the module's mode) the predictors take dropout, each from
+        its own seed, folded from ``seed`` in the order they run."""
+        train = self.training if train is None else train
+        seeds = iter(L.split(seed, 4))
+        log_d_pred = self.duration_predictor(
+            x, src_valid, self.cdtype, drop_rate=self.drop_rate, train=train,
+            seed=next(seeds))
         pitch = (self.pitch_predictor, self.pitch_embedding, self.pitch_bins,
                  p_targets, p_control)
         energy = (self.energy_predictor, self.energy_embedding,
@@ -94,9 +107,9 @@ class VarianceAdaptor(nn.Module):
 
         p_pred = e_pred = None
         if self.pitch_level == "phoneme_level":
-            p_pred, x = self._add_variance(*pitch, src_valid, x)
+            p_pred, x = self._add_variance(*pitch, src_valid, x, train, next(seeds))
         if self.energy_level == "phoneme_level":
-            e_pred, x = self._add_variance(*energy, src_valid, x)
+            e_pred, x = self._add_variance(*energy, src_valid, x, train, next(seeds))
 
         if d_targets is not None:
             d_rounded = d_targets
@@ -112,8 +125,8 @@ class VarianceAdaptor(nn.Module):
             mel_valid = get_mask_from_lengths(mel_lens, max_mel_len)
 
         if self.pitch_level == "frame_level":
-            p_pred, x = self._add_variance(*pitch, mel_valid, x)
+            p_pred, x = self._add_variance(*pitch, mel_valid, x, train, next(seeds))
         if self.energy_level == "frame_level":
-            e_pred, x = self._add_variance(*energy, mel_valid, x)
+            e_pred, x = self._add_variance(*energy, mel_valid, x, train, next(seeds))
 
         return x, p_pred, e_pred, log_d_pred, d_rounded, mel_lens, mel_valid

@@ -23,7 +23,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs = {}
-# seconds each library took to build in this process (0.0 when reused)
+# seconds each library took to build in this process (0.0 when it was
+# already built before the process started)
 build_seconds = {}
 
 
@@ -45,7 +46,7 @@ def build(name):
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
     lib_path = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
     if os.path.exists(lib_path):
-        build_seconds[name] = 0.0
+        build_seconds.setdefault(name, 0.0)
         return lib_path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib_path}.{os.getpid()}.tmp"

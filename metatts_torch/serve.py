@@ -17,15 +17,7 @@ from .data.collate import collate_batch
 from .models.fastspeech2 import FastSpeech2
 from .models.vocoder import Vocoder
 from .text import text_to_sequence
-
-
-def resolve_device(device):
-    """``device`` as a torch.device; a CUDA device must exist."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run on the CPU")
-    return device
+from .utils.tools import resolve_device
 
 
 class SynthesisEngine:
@@ -98,9 +90,8 @@ class SynthesisEngine:
 
     def adapt_speaker(self, sup_batch, steps=None, lr=None):
         raise NotImplementedError(
-            "adapt_speaker differentiates through the forward and needs the "
-            "flash-attention backward kernel and the adaptation step: "
-            "ROADMAP Queue 1 item 4 and Queue 2 item 1")
+            "adapt_speaker is the test-time adaptation of the next slice: "
+            "ROADMAP Queue 1 item 7")
 
     @classmethod
     def from_checkpoint(cls, ckpt_path, preprocess_cfg, model_cfg,

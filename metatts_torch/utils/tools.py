@@ -9,6 +9,15 @@ import numpy as np
 import torch
 
 
+def resolve_device(device):
+    """``device`` as a torch.device; a CUDA device must exist."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU")
+    return device
+
+
 def get_mask_from_lengths(lengths, max_len):
     """(B,) int lengths -> (B, max_len) bool, True where t < length (valid)."""
     ids = torch.arange(max_len, dtype=lengths.dtype, device=lengths.device)

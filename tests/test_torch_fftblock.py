@@ -22,7 +22,7 @@ from metatts_torch.ops.fftblock import (fused_block_supported, fused_fft_block,
                                         fused_fft_block_plain,
                                         kernel_shape_error)
 
-from torch_port_helpers import fill_tree
+from torch_port_helpers import fill_tree, one_torch_thread  # noqa: F401
 
 D, H, F, K, B, T = 128, 2, 256, 9, 3, 48
 LENS = np.array([T, 29, 0])

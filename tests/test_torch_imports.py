@@ -67,3 +67,15 @@ def test_smoke_imports_nothing_of_jax():
             names.append(node.module)
     assert names and not [n for n in names
                           if n.split(".")[0] in ("jax", "metatts_tpu")]
+
+
+@pytest.mark.parametrize("module", [
+    "metatts_torch.algorithms.adapt", "metatts_torch.algorithms.base",
+    "metatts_torch.algorithms.meta", "metatts_torch.models.loss",
+    "metatts_torch.ops.attention", "metatts_torch.train.optim"])
+def test_training_slice_modules_are_checked(module):
+    """The training slice's modules are among those imported with JAX
+    blocked above, and their files among those searched for its name."""
+    assert module in _modules()
+    assert os.path.join("metatts_torch", "csrc", "flash_attention.cu") in {
+        os.path.relpath(p, ROOT) for p in _port_files()}

@@ -35,7 +35,7 @@ from metatts_torch.ops.length_regulator import length_regulate as tlr
 from metatts_torch.text import text_to_sequence as ttext
 
 from helpers import tiny_model_cfg, tiny_preprocess_cfg, algorithm_cfg, STATS
-from torch_port_helpers import fill_tree, fs2_params
+from torch_port_helpers import fill_tree, fs2_params, one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 f32 = jnp.float32
@@ -161,8 +161,9 @@ def test_fft_block_eval():
         k, D, H, D // H, D // H, F, [9, 1]), jax.random.PRNGKey(0)), 3)
     x = np.random.RandomState(5).randn(3, 20, D).astype(np.float32)
     valid = np.arange(20)[None, :] < np.array([20, 13, 0])[:, None]
-    ref = jtr.fft_block(p, jnp.asarray(x), jnp.asarray(valid), H, cdtype=f32,
-                        drop_rate=0.0, train=False, rng=None)
+    ref = jax.jit(lambda p_, x_, v_: jtr.fft_block(
+        p_, x_, v_, H, cdtype=f32, drop_rate=0.0, train=False, rng=None))(
+            p, jnp.asarray(x), jnp.asarray(valid))
     blk = FFTBlock(D, H, F, [9, 1]).eval()
     blk.load_state_dict(fft_block_state_dict_from_jax(p))
     prec = _Precision({})                  # fp32 compute, scores, activations
@@ -177,9 +178,10 @@ def test_encoder(model):
     texts = rng.randint(1, 360, size=(2, 16)).astype(np.int32)
     valid = np.arange(16)[None, :] < np.array([16, 9])[:, None]
     table = sinusoid_table(65, 32)
-    ref = jtr.encoder_apply(jax.tree.map(jnp.asarray, model["params"]["encoder"]),
-                            jnp.asarray(texts), jnp.asarray(valid), model["mcfg"],
-                            train=False, rng=None, pos_table=jnp.asarray(table))
+    ref = jax.jit(lambda p_, t_, v_, pt: jtr.encoder_apply(
+        p_, t_, v_, model["mcfg"], train=False, rng=None, pos_table=pt))(
+            model["params"]["encoder"], jnp.asarray(texts), jnp.asarray(valid),
+            jnp.asarray(table))
     with torch.no_grad():
         got = model["port"].encoder(torch.from_numpy(texts),
                                     torch.from_numpy(valid),
@@ -192,9 +194,10 @@ def test_decoder(model):
     x = rng.randn(2, 24, 32).astype(np.float32)
     valid = np.arange(24)[None, :] < np.array([24, 5])[:, None]
     table = sinusoid_table(65, 32)
-    ref = jtr.decoder_apply(jax.tree.map(jnp.asarray, model["params"]["decoder"]),
-                            jnp.asarray(x), jnp.asarray(valid), model["mcfg"],
-                            train=False, rng=None, pos_table=jnp.asarray(table))
+    ref = jax.jit(lambda p_, x_, v_, pt: jtr.decoder_apply(
+        p_, x_, v_, model["mcfg"], train=False, rng=None, pos_table=pt))(
+            model["params"]["decoder"], jnp.asarray(x), jnp.asarray(valid),
+            jnp.asarray(table))
     with torch.no_grad():
         got = model["port"].decoder(torch.from_numpy(x), torch.from_numpy(valid),
                                     torch.from_numpy(table))
@@ -203,10 +206,9 @@ def test_decoder(model):
 
 def test_postnet_eval(model):
     mel = np.random.RandomState(8).randn(2, 30, 8).astype(np.float32)
-    ref, _ = jtr.postnet_apply(
-        jax.tree.map(jnp.asarray, model["params"]["postnet"]),
-        jax.tree.map(jnp.asarray, model["state"]["postnet"]), jnp.asarray(mel),
-        cdtype=f32, train=False, rng=None)
+    ref, _ = jax.jit(lambda p_, s_, m_: jtr.postnet_apply(
+        p_, s_, m_, cdtype=f32, train=False, rng=None))(
+            model["params"]["postnet"], model["state"]["postnet"], jnp.asarray(mel))
     with torch.no_grad():
         got = model["port"].postnet(torch.from_numpy(mel))
     _close(got, ref)
@@ -244,12 +246,12 @@ def test_variance_adaptor(model, forced):
                   e_targets=rng.randn(B, L).astype(np.float32),
                   d_targets=rng.randint(0, 5, (B, L)).astype(np.int32))
     mel_valid = np.ones((B, T), bool) if forced else None
-    ref = variance_adaptor_apply(
-        jax.tree.map(jnp.asarray, params), jnp.asarray(x),
-        jnp.asarray(src_valid), model["mcfg"], model["pcfg"], max_mel_len=T,
-        mel_valid=None if mel_valid is None else jnp.asarray(mel_valid),
-        p_control=1.1, e_control=0.9, d_control=1.3,
-        **{k: jnp.asarray(v) for k, v in kw.items()})
+    ref = jax.jit(lambda p_, x_, sv, mv, kw_: variance_adaptor_apply(
+        p_, x_, sv, model["mcfg"], model["pcfg"], max_mel_len=T, mel_valid=mv,
+        p_control=1.1, e_control=0.9, d_control=1.3, **kw_))(
+            params, jnp.asarray(x), jnp.asarray(src_valid),
+            None if mel_valid is None else jnp.asarray(mel_valid),
+            {k: jnp.asarray(v) for k, v in kw.items()})
     with torch.no_grad():
         got = port.variance_adaptor(
             torch.from_numpy(x), torch.from_numpy(src_valid), max_mel_len=T,

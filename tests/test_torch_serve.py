@@ -26,7 +26,7 @@ from metatts_torch.serve import SynthesisEngine
 
 from helpers import (tiny_model_cfg, tiny_preprocess_cfg, algorithm_cfg,
                      synth_batch, STATS)
-from torch_port_helpers import fill_tree, fs2_params
+from torch_port_helpers import fill_tree, fs2_params, one_torch_thread  # noqa: F401
 
 TEXTS = ["hello world", "{HH AH0 L OW1} there, general kenobi", "a b"]
 SPEAKERS = [0, 3, 1]
@@ -65,8 +65,8 @@ def test_forward_matches_fastspeech2_apply(tiny, teacher_forced):
               d_control=1.1)
     if not teacher_forced:
         kw["max_mel_len"] = 64
-    ref, _ = fastspeech2_apply(params, state, batch, mcfg, pcfg, acfg,
-                               train=False, **kw)
+    ref, _ = jax.jit(lambda p, s, b: fastspeech2_apply(
+        p, s, b, mcfg, pcfg, acfg, train=False, **kw))(params, state, batch)
     with torch.no_grad():
         got = port(_port_batch(batch), **kw)
     assert np.array_equal(got.d_rounded.numpy(), np.asarray(ref.d_rounded))
@@ -82,23 +82,35 @@ def test_forward_matches_fastspeech2_apply(tiny, teacher_forced):
 
 def test_forward_average_spk_emb(tiny):
     mcfg, pcfg, acfg, params, state, port = tiny
-    batch = synth_batch(np.random.RandomState(4), B=2, L=12, T=48, n_mels=8)
-    ref, _ = fastspeech2_apply(params, state, batch, mcfg, pcfg, acfg,
-                               train=False, average_spk_emb=True)
+    # the batch of test_forward_matches_fastspeech2_apply: JAX reuses the
+    # operations it compiled for those shapes
+    batch = synth_batch(np.random.RandomState(3), B=3, L=12, T=48, n_mels=8)
+    ref, _ = jax.jit(lambda p, s, b: fastspeech2_apply(
+        p, s, b, mcfg, pcfg, acfg, train=False, average_spk_emb=True))(
+            params, state, batch)
     with torch.no_grad():
         got = port(_port_batch(batch), average_spk_emb=True)
     np.testing.assert_allclose(got.postnet_mel.numpy(),
                                np.asarray(ref.postnet_mel), rtol=0, atol=ATOL)
 
 
-def test_forward_refuses_training_mode(tiny):
+def test_forward_refuses_training_mode(tiny, monkeypatch):
+    """The fused block is an eval kernel: a training forward asked for it
+    runs the unfused training blocks instead."""
     *_, port = tiny
+    calls = []
+    monkeypatch.setattr(transformer, "fused_fft_block",
+                        lambda *a, **k: calls.append(1) or fused_fft_block(*a, **k))
+    batch = _port_batch(synth_batch(np.random.RandomState(0), B=1))
     port.train()
     try:
-        with pytest.raises(NotImplementedError, match="training slice"):
-            port(_port_batch(synth_batch(np.random.RandomState(0), B=1)))
+        with torch.no_grad():
+            got = port(batch, fused_infer=True, update_bn_state=False)
+            ref = port(batch, fused_infer=False, update_bn_state=False)
     finally:
         port.eval()
+    assert calls == []
+    assert torch.equal(got.postnet_mel, ref.postnet_mel)
 
 
 def _engines(mcfg, monkeypatch, seed=0):

@@ -7,6 +7,8 @@ side's parameters, and ``metatts_torch.convert`` carries it to the port.
 """
 
 import numpy as np
+import pytest
+import torch
 import jax
 
 from metatts_tpu.models.fastspeech2 import fastspeech2_init
@@ -47,3 +49,15 @@ def fs2_params(pcfg, mcfg, acfg, stats, n_speakers, seed=0):
             stats[name][0], stats[name][1], ve["n_bins"],
             ve[f"{name}_quantization"])
     return params, state
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the port's tensors while a module runs: the
+    tests' tensors are tiny, and tier-1 runs several pytest workers on the
+    same cores, where each worker's full thread pool oversubscribes them
+    (a second-order meta-gradient took 57x its one-process time)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
