@@ -5,8 +5,10 @@
 
 Phases, each of which fails the run (non-zero exit) when it goes wrong:
 
-1. build   -- compiles ``metatts_torch/csrc/fftblock.cu`` and
-              ``flash_attention.cu`` for sm_90a, one nvcc each, in parallel;
+1. build   -- compiles ``metatts_torch/csrc/fftblock.cu``,
+              ``flash_attention.cu`` and ``melspec.cu`` for sm_90a, one nvcc
+              each, and the native F0/FLAC library (``csrc/world.cpp``,
+              ``csrc/flac.cpp``, g++), all in parallel;
 2. kernel  -- the fused FFT-block kernel against its plain PyTorch version
               at the base width (D=256, 2 heads, F=1024, k=9) for
               (B=8, T=1000) with lengths 1000, 777 and 0 among the rows,
@@ -20,7 +22,28 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
               (T=77), with rows fully valid, partly padded and fully
               padded, at the TPU kernel's own test tolerances; kernel,
               plain, bound and scaled_dot_product_attention ms;
-4. serve   -- ``SynthesisEngine`` at the base configuration (the port's
+4. mel     -- the log-mel kernel against its plain PyTorch version (TF32
+              off) on 16 and on 1 utterance of 10 s of noise at 22.05 kHz
+              (n_fft 1024, hop 256, 80 mels), 3 x 1000 samples of silence
+              (log 1e-5 everywhere) and 2 x 300 samples (repeated reflect
+              padding), at the TPU kernel's test tolerances (log-mel atol
+              1e-4, energy rtol and atol 1e-4); kernel, plain, bound and
+              ``torch.stft``-route ms;
+5. preprocess -- a synthetic corpus from a seed (4 speakers x 8
+              utterances whose mean length, 5.83 s, is LibriTTS
+              train-clean-100's, with ``phones`` TextGrids) through
+              ``Preprocessor(device="cuda").build_from_path()`` with
+              LibriTTS's preprocessing at full width: native F0, exactly one
+              mel kernel launch per utterance written, every artifact's
+              shape, stats.json and speakers.json; three utterances again on
+              the card and on the CPU (atol 1e-4); the corpus read back with
+              ``TTSDataset`` and ``collate_batch`` into a teacher-forced
+              base-config FastSpeech2 forward and loss on the card (finite);
+              utterances/s, audio seconds per wall second and the per
+              utterance split of F0, mel, reference slices and file I/O, on
+              this synthetic mix only (the smoke's throughput, not a
+              preprocessing benchmark);
+6. serve   -- ``SynthesisEngine`` at the base configuration (the port's
               defaults, equal to config/model/base.yaml,
               config/preprocess/LibriTTS.yaml and
               config/algorithm/meta_emb_vad.yaml; bf16 compute and
@@ -31,7 +54,7 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
               forward through the plain version; ms per call, real-time
               factor, and the split between acoustic model, fused blocks
               and vocoder;
-5. train   -- ``MetaSystem.train_step`` at the same base configuration
+7. train   -- ``MetaSystem.train_step`` at the same base configuration
               (second-order MAML, 5 inner SGD steps, custom-HVP) on
               ``bench.py``'s workload: one episode of 5 support and 5 query
               utterances, 128 symbols, 896 mel frames, synthetic from a
@@ -41,7 +64,7 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
               the kernels against the same step through the plain versions;
               ms per step, mel frames/s, peak memory; then one first-order
               ``validation_step``;
-6. report  -- one JSON line of kernels, then the card's name and power
+8. report  -- one JSON line of kernels, then the card's name and power
               limit, then the result line.
 
 It exits with an error and prints no result where no CUDA device is
@@ -124,20 +147,26 @@ def block_bound(B, T, D, H, F, K):
             else "bytes", flops, nbytes)
 
 
-KERNEL_SOURCES = ("fftblock", "flash_attention")
+KERNEL_SOURCES = ("fftblock", "flash_attention", "melspec")
 
 
 def phase_build():
-    from metatts_torch.ops import _build, attention, fftblock
+    from metatts_torch.ops import _build, attention, fftblock, melspec
+    from metatts_torch.preprocess import pitch
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+    with ThreadPoolExecutor(len(KERNEL_SOURCES) + 1) as pool:
+        host = pool.submit(_build.build_host, "world", pitch.SOURCES)
         list(pool.map(_build.build, KERNEL_SOURCES))
+        host.result()
     fftblock._lib()
     attention._lib()
-    print(f"[build] {', '.join(n + '.cu' for n in KERNEL_SOURCES)} in parallel: "
-          f"{time.perf_counter() - t0:.2f} s (nvcc "
+    melspec._lib()
+    if pitch.f0_backend() != "native-dio":
+        raise AssertionError("the native F0 library did not load")
+    print(f"[build] {', '.join(n + '.cu' for n in KERNEL_SOURCES)} and the native "
+          f"F0/FLAC library in parallel: {time.perf_counter() - t0:.2f} s ("
           + ", ".join(f"{n} {_build.build_seconds.get(n, 0.0):.2f} s"
-                      for n in KERNEL_SOURCES) + ")")
+                      for n in KERNEL_SOURCES + ("world",)) + ")")
     for name in KERNEL_SOURCES:
         log = os.path.join(_build.BUILD_DIR, name + ".log")
         if os.path.exists(log):
@@ -499,6 +528,337 @@ def phase_flash():
     return results
 
 
+# ---------------------------------------------------------------- mel
+
+MEL = dict(n_fft=1024, hop=256, win_length=1024, sr=22050, n_mels=80)
+MEL_SHAPES = ((16, 220500), (1, 220500))      # 16 and 1 utterances of 10 s
+MEL_ATOL = 1e-4                               # tests/test_pallas_melspec.py
+EN_TOL = 1e-4
+
+
+def mel_bound(B, T, n_fft=1024, hop=256, win_length=1024, sr=22050, n_mels=80):
+    """(bound_ms, bound_by, flops, bytes) of one log-mel call, from the least
+    work the function needs: per frame the window, a real FFT of n_fft points
+    (2.5 n_fft log2 n_fft FLOP), power, magnitude and energy of the cutoff
+    bins, the filterbank's nonzero weights and the log clamp, against the
+    fp32 peak outside the tensor cores; audio in, window and nonzero weights
+    once, log-mel and energy out."""
+    from metatts_torch.ops.stft import mel_filterbank
+    nnz = int((mel_filterbank(sr, n_fft, n_mels) != 0).sum())
+    frames = B * (T // hop + 1)
+    cutoff = n_fft // 2 + 1
+    per_frame = (win_length + 2.5 * n_fft * math.log2(n_fft) + 5 * cutoff + 1
+                 + 2 * nnz + 2 * n_mels)
+    flops = frames * per_frame
+    nbytes = 4 * (B * T + win_length + nnz + frames * (n_mels + 1))
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", flops, nbytes)
+
+
+def mel_kernel_flops(B, T, n_fft=1024, hop=256, n_mels=80, **_):
+    """FLOP the kernel itself does: the DFT as two dense fp32 products (cos,
+    sin) and a dense mel product, ~70x what an FFT needs (``mel_bound``)."""
+    cutoff = n_fft // 2 + 1
+    return B * (T // hop + 1) * (2 * n_fft * cutoff * 2 + 2 * cutoff * n_mels)
+
+
+def library_mel(y, cfg):
+    """The yardstick, never on the port's path: the same function through
+    cuFFT (``torch.stft``), abs, the mel product, log clamp and norm."""
+    import torch
+    from metatts_torch.ops.melspec import _constants
+    c = _constants(cfg["n_fft"], cfg["win_length"], cfg["sr"], cfg["n_mels"], 0.0, None,
+                   y.device)
+    window = torch.hann_window(cfg["win_length"], periodic=True, device=y.device)
+
+    def run():
+        spec = torch.stft(y, cfg["n_fft"], hop_length=cfg["hop"],
+                          win_length=cfg["win_length"], window=window, center=True,
+                          pad_mode="reflect", return_complex=True)
+        mag = spec.abs()                                        # (B, cutoff, F)
+        mel = torch.log(torch.clamp(c["mel"].T @ mag, min=1e-5))
+        return mel, torch.linalg.vector_norm(mag, dim=1)
+    return run
+
+
+def check_mel(y, name):
+    """Kernel against plain version on one input; raises on disagreement.
+    Returns (max abs err of log-mel, of energy)."""
+    import torch
+    from metatts_torch.ops.melspec import (fused_mel_spectrogram,
+                                           fused_mel_spectrogram_plain)
+    mel, en = fused_mel_spectrogram(y, **MEL)
+    ref, ref_en = fused_mel_spectrogram_plain(y, **MEL)
+    torch.cuda.synchronize()
+    err = (mel - ref).abs().max().item()
+    en_err = (en - ref_en).abs().max().item()
+    ok = (mel.shape == ref.shape and en.shape == ref_en.shape
+          and bool(torch.isfinite(mel).all() and torch.isfinite(en).all())
+          and err <= MEL_ATOL
+          and bool(torch.allclose(en, ref_en, rtol=EN_TOL, atol=EN_TOL)))
+    print(f"[mel] {name} B={y.shape[0]} T={y.shape[1]}: log-mel max_abs_err {err:.3e} "
+          f"(atol {MEL_ATOL:g}), energy max_abs_err {en_err:.3e} (rtol and atol "
+          f"{EN_TOL:g}), shape {tuple(mel.shape)}")
+    if not ok:
+        raise AssertionError(f"fused_mel_spectrogram disagrees with its plain version "
+                             f"on {name} B={y.shape[0]} T={y.shape[1]}")
+    return err, en_err, mel
+
+
+def phase_mel():
+    import numpy as np
+    import torch
+    from metatts_torch.ops.melspec import (fused_mel_spectrogram,
+                                           fused_mel_spectrogram_plain)
+
+    rng = np.random.RandomState(3)
+    results = {}
+    for B, T in MEL_SHAPES:
+        y = torch.from_numpy(rng.uniform(-0.8, 0.8, (B, T)).astype(np.float32)).cuda()
+        err, en_err, _ = check_mel(y, "noise")
+        ms = cuda_ms(lambda: fused_mel_spectrogram(y, **MEL))
+        plain_ms = cuda_ms(lambda: fused_mel_spectrogram_plain(y, **MEL), iters=5, warmup=1)
+        lib = library_mel(y, MEL)
+        lib_mel, lib_en = lib()
+        ref, ref_en = fused_mel_spectrogram_plain(y, **MEL)
+        lib_err = (lib_mel - ref).abs().max().item()
+        library_ms = cuda_ms(lib)
+        bound_ms, bound_by, flops, nbytes = mel_bound(B, T, **MEL)
+        own = mel_kernel_flops(B, T, **MEL)
+        print(f"[mel] B={B} T={T}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.5f} ms ({bound_by}; FFT route {flops / 1e9:.3f} GFLOP, "
+              f"{nbytes / 1e6:.2f} MB), torch.stft route {library_ms:.4f} ms (its "
+              f"log-mel vs plain max_abs_err {lib_err:.3e}); the kernel's own DFT-as-"
+              f"product work {own / 1e9:.2f} GFLOP at {own / ms / 1e9:.1f} TFLOP/s")
+        results[(B, T)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                               bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    # silence maps to log(1e-5) everywhere (tests/test_pallas_melspec.py:20-25)
+    _, _, mel = check_mel(torch.zeros(3, 1000, device="cuda"), "silence")
+    sil = (mel - math.log(1e-5)).abs().max().item()
+    print(f"[mel] silence: max |log-mel - log(1e-5)| {sil:.3e}")
+    if sil > 1e-5:
+        raise AssertionError("silence does not map to log(1e-5)")
+    # 300 samples: the 512-sample pad reflects more than once
+    check_mel(torch.from_numpy(rng.uniform(-0.8, 0.8, (2, 300)).astype(np.float32)).cuda(),
+              "short")
+    return results
+
+
+# ---------------------------------------------------------------- preprocess
+
+PP_SPEAKERS, PP_UTTERANCES = 4, 8
+# LibriTTS train-clean-100's mean utterance length: 53.78 h over 33,236
+# utterances (Zen et al., "LibriTTS", Interspeech 2019, Table 1).  Only the
+# mean is published; the spread around it (uniform over 1.0-10.65 s, then
+# scaled so the corpus meets the mean exactly) is this script's own choice.
+PP_MEAN_S = 53.78 * 3600 / 33236
+PP_SPREAD_S = (1.0, 10.65)
+PP_PHONES = ["AH0", "B", "IY1", "K", "S", "T", "AE1", "N", "D", "OW1", "L", "M"]
+
+
+def _textgrid(path, intervals):
+    """A long-form MFA-style TextGrid with one ``phones`` tier."""
+    xmax = intervals[-1][1]
+    lines = ['File type = "ooTextFile"', 'Object class = "TextGrid"', "",
+             "xmin = 0.0", f"xmax = {xmax}", "tiers? <exists>", "size = 1",
+             "item []:", "\titem [1]:", '\t\tclass = "IntervalTier"',
+             '\t\tname = "phones"', "\t\txmin = 0.0", f"\t\txmax = {xmax}",
+             f"\t\tintervals: size = {len(intervals)}"]
+    for i, (s, e, p) in enumerate(intervals):
+        lines += [f"\t\tintervals [{i + 1}]:", f"\t\t\txmin = {s}",
+                  f"\t\t\txmax = {e}", f'\t\t\ttext = "{p}"']
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write("\n".join(lines))
+
+
+def make_corpus(root, sr, seed=0):
+    """A synthetic corpus from a seed: speakers x utterances at 22.05 kHz
+    whose mean length is LibriTTS train-clean-100's (``PP_MEAN_S``), each a
+    harmonic tone with the speaker's f0 (vibrato, loud and quiet phones, a
+    little noise), with silences at both ends and a ``phones`` TextGrid.
+    Returns (raw dir, seconds of audio)."""
+    import numpy as np
+    from metatts_torch.preprocess.audio_io import save_wav
+    rng = np.random.RandomState(seed)
+    raw = os.path.join(root, "raw")
+    lengths = rng.uniform(*PP_SPREAD_S, PP_SPEAKERS * PP_UTTERANCES)
+    lengths *= PP_MEAN_S / lengths.mean()
+    seconds = 0.0
+    for s in range(PP_SPEAKERS):
+        spk, f0 = f"spk{s}", 95.0 + 45.0 * s
+        for u in range(PP_UTTERANCES):
+            base = f"{spk}_{u:03d}"
+            n = int(lengths[s * PP_UTTERANCES + u] * sr)
+            t = np.arange(n) / sr
+            f = f0 * (1 + 0.06 * np.sin(2 * np.pi * rng.uniform(0.5, 3.0) * t))
+            ph = 2 * np.pi * np.cumsum(f) / sr
+            wav = 0.3 * np.sin(ph) + 0.12 * np.sin(2 * ph) + 0.05 * np.sin(3 * ph)
+            wav *= 0.25 + 0.75 * np.abs(np.sin(np.pi * rng.uniform(0.7, 2.0) * t))
+            wav += 0.005 * rng.randn(n)
+            lead, tail = 0.15, 0.2
+            wav[: int(lead * sr)] = 0.002 * rng.randn(int(lead * sr))
+            wav[n - int(tail * sr):] = 0.002 * rng.randn(int(tail * sr))
+            d = os.path.join(raw, "train", spk)
+            os.makedirs(d, exist_ok=True)
+            save_wav(os.path.join(d, base + ".wav"), wav.astype(np.float32), sr)
+            with open(os.path.join(d, base + ".lab"), "w") as fh:
+                fh.write("a synthetic sentence")
+            intervals, start = [(0.0, lead, "sil")], lead
+            while start < n / sr - tail - 0.05:
+                end = min(start + rng.uniform(0.06, 0.16), n / sr - tail)
+                intervals.append((start, end, PP_PHONES[rng.randint(len(PP_PHONES))]
+                                  if rng.rand() > 0.08 else "sp"))
+                start = end
+            intervals[-1] = intervals[-1][:2] + (PP_PHONES[0],)
+            intervals.append((start, n / sr, "sil"))
+            _textgrid(os.path.join(root, "TextGrid", spk, base + ".TextGrid"), intervals)
+            seconds += n / sr
+    return raw, seconds
+
+
+def phase_preprocess():
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from metatts_torch import config as C
+    from metatts_torch.data.collate import collate_batch
+    from metatts_torch.data.dataset import TTSDataset
+    from metatts_torch.models.fastspeech2 import FastSpeech2
+    from metatts_torch.models.loss import fastspeech2_loss
+    from metatts_torch.ops import melspec
+    from metatts_torch.preprocess.pitch import f0_backend
+    from metatts_torch.preprocess.preprocessor import Preprocessor
+
+    pcfg, mcfg, acfg = C.base_configs()
+    sr = pcfg["preprocessing"]["audio"]["sampling_rate"]
+    root = tempfile.mkdtemp(prefix="pp_smoke_")
+    try:
+        t0 = time.perf_counter()
+        raw, audio_s = make_corpus(root, sr)
+        out = os.path.join(root, "card")
+        shutil.copytree(os.path.join(root, "TextGrid"), os.path.join(out, "TextGrid"))
+        cfg = C.deep_merge(pcfg, {"path": {"raw_path": raw, "preprocessed_path": out},
+                                  "subsets": {"train": "train", "val": "train",
+                                              "test": "train"}})
+        print(f"[preprocess] corpus: {PP_SPEAKERS} speakers x {PP_UTTERANCES} utterances, "
+              f"{audio_s:.1f} s of audio at {sr} Hz, written in "
+              f"{time.perf_counter() - t0:.2f} s")
+        if f0_backend() != "native-dio":
+            raise AssertionError(f"F0 backend {f0_backend()}, not native-dio")
+
+        # the main path, counted; CUDA events around each mel call
+        pre = Preprocessor(cfg, device="cuda")
+        mel_call, events = pre.stft.mel_spectrogram, []
+
+        def timed(y):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = mel_call(y)
+            end.record()
+            events.append((start, end))
+            return res
+
+        pre.stft.mel_spectrogram = timed
+        melspec.fused_mel_spectrogram.launches = 0
+        t0 = time.perf_counter()
+        outs = pre.build_from_path()
+        wall = time.perf_counter() - t0
+        launches = melspec.fused_mel_spectrogram.launches
+        lines = outs["train"]
+        if launches != len(lines) or not lines:
+            raise AssertionError(f"{launches} mel kernel launches for {len(lines)} "
+                                 f"utterances written")
+        card_ms = sum(s.elapsed_time(e) for s, e in events)
+
+        n_ref = 0
+        for line in lines:
+            base, spk, text, _ = line.split("|")
+            load = lambda sub, kind: np.load(os.path.join(out, sub, f"{spk}-{kind}-{base}.npy"))
+            dur, mel = load("duration", "duration"), load("mel", "mel")
+            pitch, energy = load("pitch", "pitch"), load("energy", "energy")
+            ref = load("spk_ref_mel_slices", "mel")
+            n_ph = len(text.strip("{}").split())
+            if not (mel.shape == (int(dur.sum()), 80) and dur.shape == (n_ph,)
+                    and pitch.shape == energy.shape == (n_ph,)
+                    and ref.ndim == 3 and ref.shape[0] >= 1 and ref.shape[1:] == (160, 40)
+                    and all(np.isfinite(a).all() for a in (mel, pitch, energy, ref))):
+                raise AssertionError(f"{base}: mel {mel.shape}, duration {dur.shape} "
+                                     f"(sum {dur.sum()}), pitch {pitch.shape}, energy "
+                                     f"{energy.shape}, ref slices {ref.shape}")
+            n_ref += ref.shape[0]
+        with open(os.path.join(out, "stats.json")) as f:
+            stats = json.load(f)
+        with open(os.path.join(out, "speakers.json")) as f:
+            speakers = json.load(f)
+        if not (len(stats["pitch"]) == len(stats["energy"]) == 4
+                and all(math.isfinite(v) for v in stats["pitch"] + stats["energy"])
+                and sorted(speakers.values()) == list(range(PP_SPEAKERS))):
+            raise AssertionError(f"stats {stats}, speakers {speakers}")
+        sec = pre.seconds
+        n = len(lines)
+        print(f"[preprocess] Preprocessor(device='cuda').build_from_path: {n} utterances "
+              f"in {wall:.2f} s, {n / wall:.2f} utterances/s, {audio_s / wall:.1f} s of "
+              f"audio per wall second; {launches} mel kernel launches; {n_ref} reference "
+              f"slices; stats pitch {stats['pitch']}, energy {stats['energy']}")
+        print(f"[preprocess] per utterance: load {1e3 * sec['load'] / n:.2f} ms, F0 on the "
+              f"host {1e3 * sec['f0'] / n:.2f} ms, mel {1e3 * sec['mel'] / n:.2f} ms "
+              f"(kernel on the card {card_ms / n:.3f} ms, CUDA events), reference slices "
+              f"{1e3 * sec['ref'] / n:.2f} ms, file writes {1e3 * sec['save'] / n:.2f} ms")
+
+        # three utterances again: on the card and on the CPU (conv-DFT path),
+        # unnormalised artifacts side by side
+        picks = [lines[0], lines[len(lines) // 2], lines[-1]]
+        gaps = {"mel": 0.0, "energy": 0.0, "pitch": 0.0}
+        for dev in ("cuda", "cpu"):
+            d = os.path.join(root, "again", dev)
+            shutil.copytree(os.path.join(root, "TextGrid"), os.path.join(d, "TextGrid"))
+            again = Preprocessor(C.deep_merge(cfg, {"path": {"preprocessed_path": d}}),
+                                 device=dev)
+            for sub in ("mel", "pitch", "energy", "duration", "spk_ref_mel_slices"):
+                os.makedirs(os.path.join(d, sub))
+            for line in picks:
+                base, spk = line.split("|")[:2]
+                again.process_utterance(os.path.join(raw, "train"), spk, base)
+        for line in picks:
+            base, spk = line.split("|")[:2]
+            for kind in gaps:
+                a, b = (np.load(os.path.join(root, "again", dev, kind,
+                                             f"{spk}-{kind}-{base}.npy"))
+                        for dev in ("cuda", "cpu"))
+                if a.shape != b.shape:
+                    raise AssertionError(f"{base} {kind}: {a.shape} on the card, "
+                                         f"{b.shape} on the CPU")
+                gaps[kind] = max(gaps[kind], float(np.abs(a - b).max()))
+        print(f"[preprocess] card vs CPU on 3 utterances, max abs: mel "
+              f"{gaps['mel']:.3e}, energy {gaps['energy']:.3e}, pitch "
+              f"{gaps['pitch']:.3e} (atol {MEL_ATOL:g})")
+        if max(gaps.values()) > MEL_ATOL:
+            raise AssertionError("the card's artifacts disagree with the CPU's")
+
+        # the corpus read back feeds a teacher-forced forward and loss
+        ds = TTSDataset("train.txt", cfg)
+        batch, _ = collate_batch([ds[i] for i in range(0, len(ds), 4)])
+        model = FastSpeech2(cfg, mcfg, acfg, stats, n_speakers=PP_SPEAKERS,
+                            generator=torch.Generator().manual_seed(0)).cuda().eval()
+        batch = batch.to("cuda")
+        with torch.no_grad():
+            losses = fastspeech2_loss(batch, model(batch), cfg)
+        vals = [float(v) for v in losses]
+        print(f"[preprocess] TTSDataset -> collate_batch ({batch.texts.shape[0]} "
+              f"utterances, text {batch.texts.shape[1]}, mel {batch.mels.shape[1]}) -> "
+              f"teacher-forced FastSpeech2 (base config) on the card: losses "
+              + ", ".join(f"{k} {v:.4f}" for k, v in zip(losses._fields, vals)))
+        if not all(math.isfinite(v) for v in vals):
+            raise AssertionError(f"non-finite losses {vals}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 # ---------------------------------------------------------------- train
 
 SHOTS, QUERIES, SRC_LEN, MEL_LEN, INNER_STEPS, EPISODES = 5, 5, 128, 896, 5, 1
@@ -711,6 +1071,15 @@ def phase_train():
     return launches
 
 
+def with_time(phase):
+    """One phase, with its wall time."""
+    t0 = time.perf_counter()
+    out = phase()
+    print(f"[time] {phase.__name__[len('phase_'):]}: "
+          f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main():
     try:
         import torch
@@ -730,11 +1099,13 @@ def main():
 
     card = card_line()
     print(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    phase_build()
-    kern = phase_kernel()
-    flash = phase_flash()
-    launches = phase_serve()
-    flash_launches = phase_train()
+    with_time(phase_build)
+    kern = with_time(phase_kernel)
+    flash = with_time(phase_flash)
+    mel = with_time(phase_mel)
+    mel_launches = with_time(phase_preprocess)
+    launches = with_time(phase_serve)
+    flash_launches = with_time(phase_train)
 
     k = kern[1000]
     entry = {
@@ -759,6 +1130,13 @@ def main():
             "launches": flash_launches[i], **r,
             "shape": "BH=10 T=896 D=128 bf16",
         })
+    entries.append({
+        "name": "fused_mel_spectrogram", "route": "cuda",
+        "source": "metatts_torch/csrc/melspec.cu",
+        "replaces": "metatts_tpu/ops/pallas/melspec.py:81",
+        "launches": mel_launches, **mel[MEL_SHAPES[0]],
+        "shape": "B=16 T=220500 n_fft=1024 hop=256 mels=80 fp32",
+    })
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -79,3 +79,33 @@ def test_training_slice_modules_are_checked(module):
     assert module in _modules()
     assert os.path.join("metatts_torch", "csrc", "flash_attention.cu") in {
         os.path.relpath(p, ROOT) for p in _port_files()}
+
+
+@pytest.mark.parametrize("module", [
+    "metatts_torch.ops.stft", "metatts_torch.ops.melspec",
+    "metatts_torch.preprocess", "metatts_torch.preprocess.audio_io",
+    "metatts_torch.preprocess.pitch", "metatts_torch.preprocess.textgrid",
+    "metatts_torch.preprocess.refmel", "metatts_torch.preprocess.preprocessor",
+    "metatts_torch.preprocess.__main__", "metatts_torch.data.dataset"])
+def test_preprocessing_slice_modules_are_checked(module):
+    """The preprocessing slice's modules are among those imported with JAX
+    blocked above, and their files among those searched for its name."""
+    assert module in _modules()
+    assert os.path.join("metatts_torch", "csrc", "melspec.cu") in {
+        os.path.relpath(p, ROOT) for p in _port_files()}
+
+
+def test_scipy_only_in_preprocess():
+    """scipy is imported by the port only in ``metatts_torch/preprocess/``."""
+    for path in _port_files():
+        if not path.endswith(".py"):
+            continue
+        rel = os.path.relpath(path, PKG)
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+                 for a in n.names]
+        names += [n.module for n in ast.walk(tree)
+                  if isinstance(n, ast.ImportFrom) and n.module]
+        if any(n.split(".")[0] == "scipy" for n in names):
+            assert rel.startswith("preprocess" + os.sep), rel
