@@ -22,13 +22,18 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
               (T=77), with rows fully valid, partly padded and fully
               padded, at the TPU kernel's own test tolerances; kernel,
               plain, bound and scaled_dot_product_attention ms;
-4. mel     -- the log-mel kernel against its plain PyTorch version (TF32
-              off) on 16 and on 1 utterance of 10 s of noise at 22.05 kHz
-              (n_fft 1024, hop 256, 80 mels), 3 x 1000 samples of silence
-              (log 1e-5 everywhere) and 2 x 300 samples (repeated reflect
-              padding), at the TPU kernel's test tolerances (log-mel atol
-              1e-4, energy rtol and atol 1e-4); kernel, plain, bound and
-              ``torch.stft``-route ms;
+4. mel     -- the log-mel kernel (a real FFT per frame) against its plain
+              PyTorch version (TF32 off) on 16 and on 1 utterance of 10 s
+              of noise at 22.05 kHz (n_fft 1024, hop 256, 80 mels), 3 x 1000
+              samples of silence (log 1e-5 everywhere), two 10 s -60 dBFS
+              tones half silent (bins near the clamp), 220,501 samples (no
+              multiple of hop), 2 x 300 samples (repeated reflect padding)
+              and four other parameter sets (n_fft 256 to 2048, hop 200,
+              128 mels), at the TPU kernel's test tolerances (log-mel atol
+              1e-4, energy rtol and atol 1e-4), with where the worst error
+              sits; kernel (a call, and device time in a CUDA graph), plain,
+              bound and ``torch.stft``-route ms, the kernel faster than the
+              ``torch.stft`` route at both 10 s shapes;
 5. preprocess -- a synthetic corpus from a seed (4 speakers x 8
               utterances whose mean length, 5.83 s, is LibriTTS
               train-clean-100's, with ``phones`` TextGrids) through
@@ -534,6 +539,12 @@ MEL = dict(n_fft=1024, hop=256, win_length=1024, sr=22050, n_mels=80)
 MEL_SHAPES = ((16, 220500), (1, 220500))      # 16 and 1 utterances of 10 s
 MEL_ATOL = 1e-4                               # tests/test_pallas_melspec.py
 EN_TOL = 1e-4
+# other parameters the kernel takes (every n_fft it has a path for, a hop
+# that is no multiple of 32, a centred window, 128 bands), at small sizes
+MEL_OTHER = (dict(n_fft=256, hop=64, win_length=256, n_mels=40),
+             dict(n_fft=512, hop=128, win_length=400, n_mels=80),
+             dict(n_fft=1024, hop=200, win_length=800, n_mels=128),
+             dict(n_fft=2048, hop=300, win_length=2048, n_mels=80))
 
 
 def mel_bound(B, T, n_fft=1024, hop=256, win_length=1024, sr=22050, n_mels=80):
@@ -556,11 +567,24 @@ def mel_bound(B, T, n_fft=1024, hop=256, win_length=1024, sr=22050, n_mels=80):
             else "bytes", flops, nbytes)
 
 
-def mel_kernel_flops(B, T, n_fft=1024, hop=256, n_mels=80, **_):
-    """FLOP the kernel itself does: the DFT as two dense fp32 products (cos,
-    sin) and a dense mel product, ~70x what an FFT needs (``mel_bound``)."""
-    cutoff = n_fft // 2 + 1
-    return B * (T // hop + 1) * (2 * n_fft * cutoff * 2 + 2 * cutoff * n_mels)
+def graph_ms(fn, iters=20):
+    """Device time of one call without the host's enqueue: ``iters`` calls
+    captured in one CUDA graph, replayed after a warm-up replay.  None where
+    the call cannot be captured."""
+    import torch
+    try:
+        fn()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(iters):
+                fn()
+        g.replay()
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        print(f"[mel] CUDA graph capture failed ({str(e)[:120]}): device time not measured")
+        return None
+    return cuda_ms(g.replay, iters=10, warmup=1) / iters
 
 
 def library_mel(y, cfg):
@@ -582,28 +606,47 @@ def library_mel(y, cfg):
     return run
 
 
-def check_mel(y, name):
+def check_mel(y, name, cfg=MEL):
     """Kernel against plain version on one input; raises on disagreement.
-    Returns (max abs err of log-mel, of energy)."""
+    Prints where the worst log-mel error sits (utterance, band, frame) and
+    the plain version's log-mel there.  Returns (max abs err of log-mel, of
+    energy, the kernel's log-mel)."""
+    import numpy as np
     import torch
     from metatts_torch.ops.melspec import (fused_mel_spectrogram,
                                            fused_mel_spectrogram_plain)
-    mel, en = fused_mel_spectrogram(y, **MEL)
-    ref, ref_en = fused_mel_spectrogram_plain(y, **MEL)
+    mel, en = fused_mel_spectrogram(y, **cfg)
+    ref, ref_en = fused_mel_spectrogram_plain(y, **cfg)
     torch.cuda.synchronize()
-    err = (mel - ref).abs().max().item()
-    en_err = (en - ref_en).abs().max().item()
     ok = (mel.shape == ref.shape and en.shape == ref_en.shape
-          and bool(torch.isfinite(mel).all() and torch.isfinite(en).all())
-          and err <= MEL_ATOL
+          and bool(torch.isfinite(mel).all() and torch.isfinite(en).all()))
+    gap = (mel - ref).abs() if ok else torch.full((1, 1, 1), math.inf)
+    err = gap.max().item()
+    en_err = (en - ref_en).abs().max().item() if ok else math.inf
+    b, m, f = (int(i) for i in np.unravel_index(int(gap.argmax()), tuple(gap.shape)))
+    where = f"utterance {b}, band {m}, frame {f}, plain log-mel {ref[b, m, f].item():.4f}" \
+        if ok else "shapes differ or not finite"
+    ok = (ok and err <= MEL_ATOL
           and bool(torch.allclose(en, ref_en, rtol=EN_TOL, atol=EN_TOL)))
     print(f"[mel] {name} B={y.shape[0]} T={y.shape[1]}: log-mel max_abs_err {err:.3e} "
-          f"(atol {MEL_ATOL:g}), energy max_abs_err {en_err:.3e} (rtol and atol "
-          f"{EN_TOL:g}), shape {tuple(mel.shape)}")
+          f"(atol {MEL_ATOL:g}) at {where}; energy max_abs_err {en_err:.3e} (rtol and "
+          f"atol {EN_TOL:g}), shape {tuple(mel.shape)}")
     if not ok:
         raise AssertionError(f"fused_mel_spectrogram disagrees with its plain version "
                              f"on {name} B={y.shape[0]} T={y.shape[1]}")
     return err, en_err, mel
+
+
+def quiet_tone(T, sr, freqs):
+    """One utterance per frequency: a -60 dBFS tone (peak 1e-3) over one half
+    of T samples and exact silence over the other, bins near the clamp."""
+    import numpy as np
+    t = np.arange(T) / sr
+    y = np.zeros((len(freqs), T), np.float32)
+    for i, f in enumerate(freqs):
+        half = slice(0, T // 2) if i % 2 else slice(T // 2, T)
+        y[i, half] = 1e-3 * np.sin(2 * np.pi * f * t[half])
+    return y
 
 
 def phase_mel():
@@ -617,7 +660,9 @@ def phase_mel():
     for B, T in MEL_SHAPES:
         y = torch.from_numpy(rng.uniform(-0.8, 0.8, (B, T)).astype(np.float32)).cuda()
         err, en_err, _ = check_mel(y, "noise")
-        ms = cuda_ms(lambda: fused_mel_spectrogram(y, **MEL))
+        call = lambda: fused_mel_spectrogram(y, **MEL)
+        ms = cuda_ms(call)
+        dev_ms = graph_ms(call)
         plain_ms = cuda_ms(lambda: fused_mel_spectrogram_plain(y, **MEL), iters=5, warmup=1)
         lib = library_mel(y, MEL)
         lib_mel, lib_en = lib()
@@ -625,23 +670,40 @@ def phase_mel():
         lib_err = (lib_mel - ref).abs().max().item()
         library_ms = cuda_ms(lib)
         bound_ms, bound_by, flops, nbytes = mel_bound(B, T, **MEL)
-        own = mel_kernel_flops(B, T, **MEL)
-        print(f"[mel] B={B} T={T}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bound_ms:.5f} ms ({bound_by}; FFT route {flops / 1e9:.3f} GFLOP, "
-              f"{nbytes / 1e6:.2f} MB), torch.stft route {library_ms:.4f} ms (its "
-              f"log-mel vs plain max_abs_err {lib_err:.3e}); the kernel's own DFT-as-"
-              f"product work {own / 1e9:.2f} GFLOP at {own / ms / 1e9:.1f} TFLOP/s")
+        dev = "not measured" if dev_ms is None else (
+            f"{dev_ms:.4f} ms ({100 * bound_ms / dev_ms:.1f}% of the bound)")
+        print(f"[mel] B={B} T={T}: kernel {ms:.4f} ms a call ({100 * bound_ms / ms:.1f}% of "
+              f"the bound; CUDA events over back-to-back calls, the host's enqueue "
+              f"included), device time in a CUDA graph {dev}; plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.5f} ms ({bound_by}; {flops / 1e9:.3f} GFLOP, "
+              f"{nbytes / 1e6:.2f} MB), torch.stft route {library_ms:.4f} ms (its log-mel "
+              f"vs plain max_abs_err {lib_err:.3e}); kernel / torch.stft route "
+              f"{ms / library_ms:.3f}")
+        if not ms < library_ms:
+            raise AssertionError(f"the log-mel kernel ({ms:.4f} ms) is not faster than "
+                                 f"the torch.stft route ({library_ms:.4f} ms) at B={B}")
         results[(B, T)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                               bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+                               bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                               device_ms=dev_ms)
     # silence maps to log(1e-5) everywhere (tests/test_pallas_melspec.py:20-25)
     _, _, mel = check_mel(torch.zeros(3, 1000, device="cuda"), "silence")
     sil = (mel - math.log(1e-5)).abs().max().item()
     print(f"[mel] silence: max |log-mel - log(1e-5)| {sil:.3e}")
     if sil > 1e-5:
         raise AssertionError("silence does not map to log(1e-5)")
+    # bins near the clamp: -60 dBFS tones and silence, 10 s each
+    check_mel(torch.from_numpy(quiet_tone(220500, MEL["sr"], (440.0, 3100.0))).cuda(),
+              "quiet")
+    # a length that is no multiple of hop
+    check_mel(torch.from_numpy(rng.uniform(-0.8, 0.8, (1, 220501)).astype(np.float32)).cuda(),
+              "noise")
     # 300 samples: the 512-sample pad reflects more than once
     check_mel(torch.from_numpy(rng.uniform(-0.8, 0.8, (2, 300)).astype(np.float32)).cuda(),
               "short")
+    for cfg in MEL_OTHER:
+        cfg = dict(MEL, **cfg)
+        check_mel(torch.from_numpy(rng.uniform(-0.8, 0.8, (2, 22050)).astype(np.float32)).cuda(),
+                  "n_fft {n_fft} hop {hop} win {win_length} mels {n_mels}".format(**cfg), cfg)
     return results
 
 
@@ -806,13 +868,15 @@ def phase_preprocess():
               f"slices; stats pitch {stats['pitch']}, energy {stats['energy']}")
         print(f"[preprocess] per utterance: load {1e3 * sec['load'] / n:.2f} ms, F0 on the "
               f"host {1e3 * sec['f0'] / n:.2f} ms, mel {1e3 * sec['mel'] / n:.2f} ms "
-              f"(kernel on the card {card_ms / n:.3f} ms, CUDA events), reference slices "
+              f"(the mel call on the card's clock {card_ms / n:.3f} ms, CUDA events "
+              f"around it, the host's enqueue included), reference slices "
               f"{1e3 * sec['ref'] / n:.2f} ms, file writes {1e3 * sec['save'] / n:.2f} ms")
 
         # three utterances again: on the card and on the CPU (conv-DFT path),
         # unnormalised artifacts side by side
         picks = [lines[0], lines[len(lines) // 2], lines[-1]]
         gaps = {"mel": 0.0, "energy": 0.0, "pitch": 0.0}
+        worst = "none"
         for dev in ("cuda", "cpu"):
             d = os.path.join(root, "again", dev)
             shutil.copytree(os.path.join(root, "TextGrid"), os.path.join(d, "TextGrid"))
@@ -832,9 +896,14 @@ def phase_preprocess():
                 if a.shape != b.shape:
                     raise AssertionError(f"{base} {kind}: {a.shape} on the card, "
                                          f"{b.shape} on the CPU")
-                gaps[kind] = max(gaps[kind], float(np.abs(a - b).max()))
+                d = np.abs(a - b)
+                if kind == "mel" and d.size and float(d.max()) > gaps["mel"]:
+                    f, m = np.unravel_index(int(d.argmax()), d.shape)
+                    worst = (f"{base}, frame {f}, band {m}, log-mel on the CPU "
+                             f"{float(b[f, m]):.4f}")
+                gaps[kind] = max(gaps[kind], float(d.max()) if d.size else 0.0)
         print(f"[preprocess] card vs CPU on 3 utterances, max abs: mel "
-              f"{gaps['mel']:.3e}, energy {gaps['energy']:.3e}, pitch "
+              f"{gaps['mel']:.3e} (at {worst}), energy {gaps['energy']:.3e}, pitch "
               f"{gaps['pitch']:.3e} (atol {MEL_ATOL:g})")
         if max(gaps.values()) > MEL_ATOL:
             raise AssertionError("the card's artifacts disagree with the CPU's")
@@ -1136,6 +1205,8 @@ def main():
         "replaces": "metatts_tpu/ops/pallas/melspec.py:81",
         "launches": mel_launches, **mel[MEL_SHAPES[0]],
         "shape": "B=16 T=220500 n_fft=1024 hop=256 mels=80 fp32",
+        **{k + "_b1": mel[MEL_SHAPES[1]][k]
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms", "device_ms")},
     })
     print(json.dumps({"kernels": entries}))
     print(card)

@@ -12,7 +12,12 @@ against the TPU package.
 
 The CUDA kernel itself runs only on the card (``chip_smoke.py`` holds it
 against the plain version there); on a CPU tensor the wrapper runs the
-plain version, which is what these tests reach.
+plain version, which is what these tests reach.  What the kernel reads is
+built on the host and checked here: the compact filterbank rebuilds the
+dense one, and a numpy emulation of the kernel's decomposition (a packed
+n_fft/2-point Stockham FFT in the kernel's radices with the wrapper's fp32
+twiddles, the split step, the sparse mel product) matches ``np.fft.rfft``
+and the plain version.
 """
 
 import numpy as np
@@ -24,7 +29,8 @@ import jax.numpy as jnp
 from metatts_tpu.ops.pallas.melspec import fused_mel_spectrogram as jax_fused
 from metatts_tpu.ops import stft as jstft
 from metatts_torch.ops import stft as tstft
-from metatts_torch.ops.melspec import (fused_mel_spectrogram,
+from metatts_torch.ops.melspec import (_kernel_tables, compact_filterbank,
+                                       fused_mel_spectrogram,
                                        fused_mel_spectrogram_plain,
                                        kernel_shape_error)
 
@@ -101,11 +107,111 @@ def test_wrapper_runs_plain_version_on_cpu(noise):
 
 @pytest.mark.parametrize("n_fft,hop,win,n_mels,ok", [
     (1024, 256, 1024, 80, True), (1024, 256, 800, 80, True),
-    (2048, 512, 2048, 80, True), (1024, 200, 1024, 80, False),
-    (1000, 250, 1000, 80, False), (1024, 256, 1024, 128, False),
-    (1024, 256, 2048, 80, False), (1024, 4096, 1024, 80, False)])
+    (2048, 512, 2048, 80, True), (1024, 200, 1024, 80, True),
+    (1000, 250, 1000, 80, False), (1024, 256, 1024, 128, True),
+    (1024, 256, 2048, 80, False), (1024, 4096, 1024, 80, True),
+    (256, 1, 256, 40, True), (128, 32, 128, 40, False),
+    (4096, 1024, 4096, 80, False), (1024, 0, 1024, 80, False),
+    (1024, 256, 1024, 129, False), (1024, 20000, 1024, 80, False)])
 def test_kernel_shape_limits(n_fft, hop, win, n_mels, ok):
     assert (kernel_shape_error(n_fft, hop, win, n_mels) is None) == ok
+
+
+@pytest.mark.parametrize("args", [(22050, 1024, 80, 0.0, None), (16000, 512, 40, 0.0, None),
+                                  (22050, 2048, 128, 50.0, 8000.0), (16000, 256, 80, 0.0, None)])
+def test_compact_filterbank_rebuilds_dense(args):
+    fb = tstft.mel_filterbank(*args)
+    bands, weights = compact_filterbank(fb)
+    dense = np.zeros_like(fb)
+    for m, (first, count, offset) in enumerate(bands):
+        dense[m, first:first + count] = weights[offset:offset + count]
+    np.testing.assert_array_equal(dense, fb)
+    assert weights.dtype == np.float32 and bands.dtype == np.int32
+    assert len(weights) < fb.size // 8          # the sparsity the kernel uses
+
+
+def _tables(n_fft, win_length, n_mels):
+    """The wrapper's fp32 tables as numpy: W_M^t, W_N^k, window, bands, weights."""
+    c = {k: v.numpy() for k, v in
+         _kernel_tables(n_fft, win_length, 22050, n_mels, 0.0, None, "cpu").items()}
+    half = n_fft // 2
+    tw = c["tables"][:4 * half]
+    tw = (tw[0::2] + 1j * tw[1::2]).astype(np.complex64)
+    return tw[:half], tw[half:], c["tables"][4 * half:], c["bands"], c["weights"]
+
+
+def _stockham(z, tw):
+    """The kernel's M-point FFT along the last axis: Stockham passes of radix
+    8 and a last one of radix 2 or 4, butterfly b reading in[b + r M/R],
+    twiddled by W_M^(r k M/(pR)) (k = b mod p), written to out[(b - k) R + k
+    + r p]; complex64 throughout."""
+    M = z.shape[-1]
+    logm = M.bit_length() - 1
+    p = 1
+    for R in [8] * (logm // 3) + ([1 << logm % 3] if logm % 3 else []):
+        b, r = np.arange(M // R), np.arange(R)
+        k = b % p
+        x = z[..., b[None, :] + r[:, None] * (M // R)] * tw[np.outer(r, k) * (M // (p * R))]
+        dft = np.exp(-2j * np.pi * np.outer(r, r) / R).astype(np.complex64)
+        out = np.empty_like(z)
+        out[..., ((b - k) * R + k)[None, :] + r[:, None] * p] = np.einsum("qr,...rb->...qb",
+                                                                           dft, x)
+        z, p = out, p * R
+    return z
+
+
+def _kernel_spectrum(frames, tw, tws):
+    """Windowed fp32 frames (..., n_fft) -> bins 0 .. n_fft/2 as the kernel
+    takes them: packed FFT, then X[k] = E + W_N^k O, X[M] = E[0] - O[0]."""
+    z = (frames[..., 0::2] + 1j * frames[..., 1::2]).astype(np.complex64)
+    Z = _stockham(z, tw)
+    M = Z.shape[-1]
+    Zc = np.conj(Z[..., (M - np.arange(M)) % M])
+    E, O = 0.5 * (Z + Zc), -0.5j * (Z - Zc)
+    WO = tws * O
+    return np.concatenate([E + WO, (E[..., :1] - WO[..., :1])], -1)
+
+
+def _windowed_frames(y, n_fft, hop, window):
+    x = np.pad(y, ((0, 0), (n_fft // 2, n_fft // 2)), mode="reflect")
+    frames = np.lib.stride_tricks.sliding_window_view(x, n_fft, axis=-1)[:, ::hop]
+    return (frames * window).astype(np.float32)
+
+
+@pytest.mark.parametrize("n_fft", [256, 512, 1024, 2048])
+def test_kernel_fft_decomposition_matches_rfft(n_fft):
+    tw, tws, window, _, _ = _tables(n_fft, n_fft, 80)
+    y = np.random.RandomState(n_fft).uniform(-0.8, 0.8, (2, 6000)).astype(np.float32)
+    frames = _windowed_frames(y, n_fft, n_fft // 4, window)
+    got = _kernel_spectrum(frames, tw, tws)
+    ref = np.fft.rfft(frames.astype(np.float64), axis=-1)
+    assert got.shape == ref.shape and got.dtype == np.complex64
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5 * np.abs(ref).max())
+
+
+def _emulate_kernel(y, n_fft=1024, hop=256, win_length=1024, n_mels=80):
+    """The kernel's log-mel and energy in numpy fp32, from the wrapper's tables."""
+    tw, tws, window, bands, weights = _tables(n_fft, win_length, n_mels)
+    X = _kernel_spectrum(_windowed_frames(y, n_fft, hop, window), tw, tws)
+    power = (X.real * X.real + X.imag * X.imag).astype(np.float32)
+    mag = np.sqrt(power)
+    mel = np.stack([mag[..., f:f + n] @ weights[o:o + n] for f, n, o in bands], 1)
+    return np.log(np.maximum(mel, np.float32(1e-5))), np.sqrt(power.sum(-1))
+
+
+@pytest.mark.parametrize("signal", ["noise", "quiet"])
+def test_kernel_emulation_matches_plain(signal):
+    T = 220500                                   # 10 s at 22.05 kHz
+    if signal == "noise":
+        y = np.random.RandomState(5).uniform(-0.8, 0.8, (1, T))
+    else:                                        # -60 dBFS tone, then silence
+        y = np.zeros((1, T))
+        y[0, :T // 2] = 1e-3 * np.sin(2 * np.pi * 440.0 * np.arange(T // 2) / 22050.0)
+    y = y.astype(np.float32)
+    got = _emulate_kernel(y)
+    ref = [a.numpy() for a in fused_mel_spectrogram_plain(torch.from_numpy(y))]
+    assert got[0].shape == ref[0].shape == (1, 80, T // 256 + 1)
+    _close(got, ref)
 
 
 def test_filterbank_and_window_are_the_tpu_packages():
