@@ -9,13 +9,20 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
               ``flash_attention.cu`` and ``melspec.cu`` for sm_90a, one nvcc
               each, and the native F0/FLAC library (``csrc/world.cpp``,
               ``csrc/flac.cpp``, g++), all in parallel;
-2. kernel  -- the fused FFT-block kernel against its plain PyTorch version
-              at the base width (D=256, 2 heads, F=1024, k=9) for
-              (B=8, T=1000) with lengths 1000, 777 and 0 among the rows,
-              and for (B=8, T=64); relative error, padded rows, invariance
-              to garbage in padded rows, no NaN; kernel / plain / bound ms;
-              a width that passes the fused gate but not the kernel's
-              limits (D=512) raises instead of running another version;
+2. kernel  -- the fused FFT-block kernel (wgmma + TMA) against its plain
+              PyTorch version at the base width (D=256, 2 heads, F=1024,
+              k=9) for (B=8, T=1000) with lengths 1000, 777 and 0 among the
+              rows, (1, 1000), (8, 160) and (8, 64), and in the serving mode
+              (bf16 in, bf16 out, which must also be the bits of the fp32
+              output rounded) at (8, 1000); then at widths the gate admits
+              beyond the base model's (D=384 / 3 heads, D=512 / 4 heads,
+              D=1024 / 8 heads, D=256 / 64 heads with F=1020) at B=2,
+              T=100; relative error, padded rows, invariance to garbage in
+              padded rows, no NaN; a call's ms (median of 5 runs of 20
+              calls), device ms (CUDA graph),
+              plain, bound, the library composite (``F.linear``, SDPA,
+              ``F.layer_norm``, ``F.conv1d``, never on the port's path) and
+              each stage's device ms at (8, 1000);
 3. flash   -- the flash-attention forward and backward kernels against
               their plain versions at the training slice's shapes, bf16
               (BH=10, D=128, T=896 and T=128) and a ragged fp32 case
@@ -139,6 +146,15 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def call_ms(fn, reps=5):
+    """A call's time where the host's enqueue may set it: the median of
+    ``reps`` runs of ``cuda_ms`` (20 calls each), so that a stall of the
+    shared host in one run does not count."""
+    fn()
+    runs = sorted(cuda_ms(fn, warmup=1) for _ in range(reps))
+    return runs[reps // 2]
+
+
 def block_bound(B, T, D, H, F, K):
     """(bound_ms, bound_by, flops, bytes) of one FFT block call: each input
     read once, each output written once, against the card's peaks."""
@@ -194,70 +210,160 @@ def _block(D, H, F, K, gen):
     return blk.cuda().eval()
 
 
-def check_block(p, B, T, H, lens, gen):
+def check_block(p, B, T, H, lens, gen, bf16=False):
     """Kernel against plain version on one input; raises on disagreement.
-    Returns (x, valid, max_abs_err, max_rel_err)."""
+    ``bf16``: the input in bf16 and ``out_dtype=bf16`` (the serving path's
+    mode).  Two roundings to bf16 of fp32 results that differ by ~1e-3 can
+    land one bf16 step apart (0.03125 at |y| in [4, 8)), so there the
+    kernel's output is held (a) at the same relative tolerance against the
+    plain version's fp32 result for the same inputs, (b) to the bits of
+    its own fp32 output rounded, and (c) against the plain version's bf16
+    output element by element: each element within the tolerance or one
+    bf16 step apart.  Returns (x, valid, max_abs_err, max_rel_err)."""
     import torch
     from metatts_torch.ops.fftblock import fused_fft_block, fused_fft_block_plain
     D = p["w_fc"].shape[0]
     x = torch.randn(B, T, D, generator=gen).to(torch.bfloat16).float().cuda()
     lens_t = torch.tensor(lens)
     valid = (torch.arange(T)[None, :] < lens_t[:, None]).cuda()
-    got = fused_fft_block(p, x, valid, H)
-    ref = fused_fft_block_plain(p, x, valid, H)
+    kw = {}
+    if bf16:
+        kw = dict(out_dtype=torch.bfloat16)
+        x = x.to(torch.bfloat16)
+    got = fused_fft_block(p, x, valid, H, **kw)
+    ref = fused_fft_block_plain(p, x, valid, H)              # fp32
     torch.cuda.synchronize()
-    err = (got - ref).abs().max().item()
+    err = (got.float() - ref).abs().max().item()
     rel = err / ref.abs().max().item()
-    pad_max = got[~valid].abs().max().item() if (~valid).any() else 0.0
+    pad_max = got[~valid].float().abs().max().item() if (~valid).any() else 0.0
     x2 = x.clone()
-    x2[1, lens[1]:] = 1e3
-    x2[2] = -1e3
-    got2 = fused_fft_block(p, x2, valid, H)
-    inv = (got2[valid] - got[valid]).abs().max().item()
+    g = min(1, B - 1)
+    x2[g, lens[g]:] = 1e3                 # garbage beyond a row's length
+    if B > 2:
+        x2[2] = -1e3                      # a row with no valid position at all
+    got2 = fused_fft_block(p, x2, valid, H, **kw)
+    inv = (got2[valid].float() - got[valid].float()).abs().max().item()
     finite = bool(torch.isfinite(got).all() and torch.isfinite(got2).all())
-    print(f"[kernel] B={B} T={T} D={D} H={H} F={p['w1'].shape[0]}: "
-          f"max_abs_err {err:.3e} rel {rel:.3e} pad_max {pad_max} "
-          f"invariance {inv:.3e} finite {finite}")
+    bf16_ok, note = True, ""
+    if bf16:
+        same_bits = torch.equal(got, fused_fft_block(p, x.float(), valid, H)
+                                .to(torch.bfloat16))
+        ref_b = fused_fft_block_plain(p, x, valid, H, **kw).float()
+        gap = (got.float() - ref_b).abs()
+        over = gap > REL_TOL * ref_b.abs().max()
+        step = torch.finfo(torch.bfloat16).eps * torch.exp2(torch.floor(
+            torch.log2(ref_b[over].abs())))                    # one bf16 step
+        steps = (gap[over] / step).max().item() if over.any() else 0.0
+        bf16_ok = same_bits and steps <= 1.0
+        note = (f"; bf16 out == fp32 out rounded {same_bits}; vs the plain bf16 "
+                f"output: rel {gap.max().item() / ref_b.abs().max().item():.3e}, "
+                f"{int((gap > 0).sum())} of {gap.numel()} elements differ, "
+                f"{int(over.sum())} beyond the tolerance, those {steps:.0f} bf16 "
+                f"step(s) apart")
+    print(f"[kernel] B={B} T={T} D={D} H={H} F={p['filter_size']}"
+          f"{' bf16 in/out' if bf16 else ''}: max_abs_err {err:.3e} rel {rel:.3e} "
+          f"pad_max {pad_max} invariance {inv:.3e} finite {finite}{note}")
     if not (rel < REL_TOL and pad_max == 0.0 and inv < INVARIANCE_TOL
-            and finite):
+            and finite and bf16_ok):
         raise AssertionError(f"fused_fft_block disagrees with its plain "
                              f"version at B={B} T={T} D={D}")
     return x, valid, err, rel
 
 
+def composite_block(p, H):
+    """The yardstick, never on the port's path: the same block through
+    PyTorch's library calls in bf16 (``F.linear``, SDPA with a key mask,
+    ``F.layer_norm``, ``F.conv1d``; TF32 off), for timing.  Returns a
+    function of (x, valid)."""
+    import torch
+    import torch.nn.functional as Fn
+    bf = torch.bfloat16
+    D, F, K = p["w_fc"].shape[0], p["filter_size"], p["conv_k"]
+    w1 = p["w1"][:F].view(F, K, D).permute(0, 2, 1).contiguous()     # (F, D, K)
+    w2 = p["w2"][:, :F].contiguous()
+    b = {n: p[n].to(bf) for n in ("b_qkv", "b_fc", "b2")}
+    b["b1"] = p["b1"][:F].to(bf)
+
+    def run(x, valid):
+        B, T, _ = x.shape
+        keep = valid[..., None]
+        q, k, v = Fn.linear(x.to(bf), p["w_qkv"], b["b_qkv"]).view(
+            B, T, 3, H, D // H).permute(2, 0, 3, 1, 4)
+        o = Fn.scaled_dot_product_attention(q, k, v, attn_mask=valid[:, None, None, :])
+        a = Fn.linear(o.transpose(1, 2).reshape(B, T, D), p["w_fc"], b["b_fc"])
+        x1 = torch.where(keep, Fn.layer_norm(a.float() + x.float(), (D,), p["ln1_w"],
+                                             p["ln1_b"]), 0.0)
+        h = torch.relu(Fn.conv1d(x1.to(bf).transpose(1, 2), w1, b["b1"],
+                                 padding=(K - 1) // 2)).transpose(1, 2)
+        y = Fn.linear(h, w2, b["b2"])
+        return torch.where(keep, Fn.layer_norm(y.float() + x1, (D,), p["ln2_w"],
+                                               p["ln2_b"]), 0.0)
+    return run
+
+
 def phase_kernel():
     import torch
-    from metatts_torch.ops.fftblock import fused_fft_block, fused_fft_block_plain
+    from metatts_torch.ops.fftblock import (STAGES, fused_fft_block,
+                                            fused_fft_block_plain,
+                                            fused_fft_block_stage)
 
     s = BASE_SHAPE
+    H = s["H"]
     gen = torch.Generator().manual_seed(0)
     p = _block(s["D"], s["H"], s["F"], s["K"], gen).fused_params()
+    composite = composite_block(p, H)
     results = {}
+    # the decoder's T (mel_cap) at the batches of 8 and 1, the encoder's
+    # text bucket of the batch of 8, and a short call
     for B, T, lens in ((8, 1000, [1000, 777, 0, 1000, 500, 999, 1, 64]),
+                       (1, 1000, [777]),
+                       (8, 160, [160, 101, 0, 160, 77, 1, 159, 33]),
                        (8, 64, [64, 50, 0, 64, 33, 1, 63, 17])):
-        x, valid, err, rel = check_block(p, B, T, s["H"], lens, gen)
-        ms = cuda_ms(lambda: fused_fft_block(p, x, valid, s["H"]))
-        plain_ms = cuda_ms(lambda: fused_fft_block_plain(p, x, valid, s["H"]),
+        x, valid, err, rel = check_block(p, B, T, H, lens, gen)
+        call = lambda: fused_fft_block(p, x, valid, H)
+        ms = call_ms(call)
+        dev_ms = graph_ms(call, tag="kernel")
+        xb = x.to(torch.bfloat16)
+        ms_bf16 = call_ms(lambda: fused_fft_block(p, xb, valid, H,
+                                                  out_dtype=torch.bfloat16))
+        plain_ms = cuda_ms(lambda: fused_fft_block_plain(p, x, valid, H),
                            iters=5, warmup=1)
+        comp = composite(x, valid)
+        comp_rel = ((comp - fused_fft_block_plain(p, x, valid, H)).abs().max()
+                    / comp.abs().max()).item()
+        composite_ms = call_ms(lambda: composite(x, valid))
         bound_ms, bound_by, flops, nbytes = block_bound(B, T, **s)
-        print(f"[kernel] B={B} T={T}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
-              f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB), "
-              f"{flops / ms / 1e9:.1f} TFLOP/s")
-        results[T] = dict(max_abs_err=err, max_rel_err=rel, ms=ms,
-                          plain_ms=plain_ms, bound_ms=bound_ms,
-                          bound_by=bound_by)
-    # D=512 passes the fused gate (as on the TPU) but is wider than the
-    # kernel's LayerNorm epilogue: the wrapper must raise, not fall back
-    p = _block(512, 4, 2048, 9, gen).fused_params()
-    x = torch.zeros(1, 32, 512, device="cuda")
-    try:
-        fused_fft_block(p, x, torch.ones(1, 32, dtype=torch.bool,
-                                          device="cuda"), 4)
-    except ValueError as e:
-        print(f"[kernel] D=512 refused: {e}")
-    else:
-        raise AssertionError("fused_fft_block ran a D=512 block")
+        print(f"[kernel] B={B} T={T}: kernel {ms:.4f} ms a call (fp32 in/out; "
+              f"bf16 in/out {ms_bf16:.4f} ms), device {dev_ms:.4f} ms; plain "
+              f"{plain_ms:.4f} ms; library composite {composite_ms:.4f} ms (rel "
+              f"{comp_rel:.2e} vs plain); bound {bound_ms:.4f} ms ({bound_by}; "
+              f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB); "
+              f"{flops / ms / 1e9:.1f} TFLOP/s a call, "
+              f"{flops / dev_ms / 1e9:.1f} on the device")
+        results[(B, T)] = dict(max_abs_err=err, max_rel_err=rel, ms=ms,
+                               device_ms=dev_ms, ms_bf16=ms_bf16,
+                               plain_ms=plain_ms, bound_ms=bound_ms,
+                               bound_by=bound_by, composite_ms=composite_ms)
+    # where the time of a call at (8, 1000) goes: each stage's launch alone
+    # on the scratch the last call left, device time in a CUDA graph
+    x, valid = torch.randn(8, 1000, s["D"], generator=gen).cuda(), \
+        torch.ones(8, 1000, dtype=torch.bool, device="cuda")
+    fused_fft_block(p, x, valid, H)
+    stages = {st: graph_ms(lambda: fused_fft_block_stage(p, x, valid, H, st),
+                           tag="kernel") for st in STAGES}
+    print("[kernel] stages at B=8 T=1000 (device ms, fp32 in/out): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
+          + f"; sum {sum(stages.values()):.4f}")
+    results[(8, 1000)]["stages_ms"] = stages
+    # the serving mode: bf16 in, bf16 out, as _run asks
+    check_block(p, 8, 1000, H, [1000, 777, 0, 1000, 500, 999, 1, 64], gen,
+                bf16=True)
+    # widths the gate admits beyond the base model's: three and four heads
+    # of 128, D=1024 (LayerNorm through fp32 scratch), d_k=4 with F=1020
+    for D, Hw, F in ((384, 3, 1536), (512, 4, 2048), (1024, 8, 4096),
+                     (256, 64, 1020)):
+        pw = _block(D, Hw, F, s["K"], gen).fused_params()
+        check_block(pw, 2, 100, Hw, [100, 37], gen)
     return results
 
 
@@ -567,7 +673,7 @@ def mel_bound(B, T, n_fft=1024, hop=256, win_length=1024, sr=22050, n_mels=80):
             else "bytes", flops, nbytes)
 
 
-def graph_ms(fn, iters=20):
+def graph_ms(fn, iters=20, tag="mel"):
     """Device time of one call without the host's enqueue: ``iters`` calls
     captured in one CUDA graph, replayed after a warm-up replay.  None where
     the call cannot be captured."""
@@ -582,7 +688,8 @@ def graph_ms(fn, iters=20):
         g.replay()
         torch.cuda.synchronize()
     except RuntimeError as e:
-        print(f"[mel] CUDA graph capture failed ({str(e)[:120]}): device time not measured")
+        print(f"[{tag}] CUDA graph capture failed ({str(e)[:120]}): device time "
+              "not measured")
         return None
     return cuda_ms(g.replay, iters=10, warmup=1) / iters
 
@@ -1176,16 +1283,19 @@ def main():
     launches = with_time(phase_serve)
     flash_launches = with_time(phase_train)
 
-    k = kern[1000]
+    k = kern[(8, 1000)]
     entry = {
         "name": "fused_fft_block", "route": "cuda",
         "source": "metatts_torch/csrc/fftblock.cu",
         "replaces": "metatts_tpu/ops/pallas/fftblock.py:93",
         "launches": launches,
-        "max_abs_err": k["max_abs_err"], "max_rel_err": k["max_rel_err"],
-        "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-        "bound_by": k["bound_by"], "library_ms": None,
-        "shape": "B=8 T=1000 D=256 H=2 F=1024 K=9",
+        **{n: k[n] for n in ("max_abs_err", "max_rel_err", "ms", "plain_ms",
+                             "bound_ms", "bound_by", "device_ms", "ms_bf16",
+                             "composite_ms", "stages_ms")},
+        "library_ms": None,
+        "shape": "B=8 T=1000 D=256 H=2 F=1024 K=9 fp32 in/out",
+        **{f"{n}_{B}x{T}": kern[(B, T)][n] for B, T in ((1, 1000), (8, 160), (8, 64))
+           for n in ("ms", "device_ms", "bound_ms")},
     }
     main_shape = flash[FLASH_SHAPES[0]]
     entries = [entry]

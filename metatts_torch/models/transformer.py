@@ -192,7 +192,7 @@ class _Stack(nn.Module):
         if _use_fused_infer(fused_infer, train, d, self.n_head):
             for layer in self.layer_stack:
                 x = fused_fft_block(layer.fused_params(), x, valid,
-                                    self.n_head).to(self.prec.adtype)
+                                    self.n_head, out_dtype=self.prec.adtype)
             return x
         impl = resolve_attn_impl(attn_impl or self.attn_impl, x.device)
         for i, layer in enumerate(self.layer_stack):
