@@ -1,8 +1,9 @@
 // Flash self-attention, forward and backward, for Hopper (sm_90a).
 //
 // Replaces the TPU kernels of flash_attention (Pallas, ops/pallas/
-// attention.py of the JAX package): _fwd_kernel / _fwd_call and
-// _bwd_kernel / _bwd_call.  Semantics, per (b*h) slice of q, k, v (T, D):
+// attention.py of the JAX package): _fwd_kernel / _fwd_call (:95) and
+// _bwd_kernel / _bwd_call (:129).  Semantics, per (b*h) slice of q, k, v
+// (T, D):
 //
 //   s     = (q k^T) * scale + bias,  bias = (mask - 1) * 1e9 for keys < T
 //   m     = rowmax(s),  l = rowsum(exp(s - m))
@@ -19,411 +20,575 @@
 // T is any length: the kernels mask the ragged tile themselves.
 //
 // Bound: at BH=10, T=896, D=128 the forward does 4*BH*T^2*D = 4.1 GFLOP on
-// 11.5 MB, the backward ~10 GFLOP, so both are bound by tensor-core
-// operations; at T=128 the forward is bound by bytes.
+// 11.5 MB and the backward 10*BH*T^2*D = 10.3 GFLOP on 23 MB, so both are
+// bound by tensor-core operations (0.0042 / 0.0104 ms at 989 TFLOP/s); at
+// T=128 (0.08 / 0.21 GFLOP) both are bound by bytes, and a call by the
+// host's enqueue.
 //
-// Design (bf16): mma.sync m16n8k16 with fp32 accumulators whose register
-// layout is known, so the scores, P and dS never leave registers.  The
-// forward takes two passes over the keys (row max and sum, then
-// cd(exp(s - m)) @ v with the final row max), which rounds P exactly where
-// the TPU kernel does; it costs one extra q k^T, 1.5x the forward's
-// matrix FLOPs.  The TPU backward is one program per (b*h) looping over q
-// blocks; here it is three kernels: delta (and a bf16 copy of do), dk/dv
-// with one block per 64-key tile looping over q, and dq with one block per
-// 64-query tile looping over keys, so 140 blocks fill the card at T=896
-// and no accumulation crosses blocks.  fp32 inputs take a plain-FMA path
-// (one warp per row), which is slow and exact to fp32 rounding.
+// Design (bf16): every product is wgmma.mma_async (m64nNk16, bf16 in, fp32
+// accumulate; hopper.cuh) on tiles that TMA brings into shared memory in
+// the 128-byte swizzled layout, 64 rows by 128 columns (D <= 128: TMA
+// zero-fills the columns past D and the rows past T).  A block is one
+// consumer warpgroup that owns 64 rows and issues wgmma, and one producer
+// warp that streams the other operand's tiles through a 2-stage ring of
+// mbarriers, with each tile's key biases (or its queries' lse and delta)
+// computed into the stage beside it; the producer's warpgroup gives its
+// registers to the consumer (setmaxnreg 24 / 232).  82 KB (forward) or
+// 98 KB (backward) of shared memory and 256 x 128 registers a block, so two
+// blocks share an SM: the forward's 140 blocks at BH=10, T=896 run in one
+// wave on 132 SMs, where a block an SM would leave a second wave of 8, and
+// two blocks on an SM overlap one's softmax and loads with the other's
+// products (at one block an SM the forward at T=896 takes 1.5x as long on
+// an H100).  Where the time goes: tools/flash_ablate.py.
+//
+// * Forward: two passes over the keys, as the TPU kernel rounds P with the
+//   final row max.  Pass 1 scores 128 keys a step (S = Q K^T, wgmma SS) and
+//   keeps the fp32 row max and sum; pass 2 scores 64 keys with their V,
+//   forms cd(exp(s - m)) in registers and feeds it as the register A
+//   operand of P V, V read through the transpose bit.  The epilogue divides
+//   by l and writes fp32 out and the natural-log lse.  Softmax runs in base
+//   2: s log2(e) = fma(dot, scale log2(e), bias log2(e)), one ex2 a score.
+// * Backward: a prologue kernel (delta from the fp32 do and out, and do
+//   rounded to bf16), then one launch of two roles with no atomics, so the
+//   result is deterministic.  Role 0 owns 64 keys and loops over the query
+//   tiles: S^T = K Q^T and dP^T = V dO^T (SS), then P^T and dS^T in
+//   registers, dV += P^T dO and dK += dS^T Q with P^T and dS^T as register
+//   A operands and dO and Q through the transpose bit.  Role 1 owns 64
+//   queries and loops over the key tiles: S = Q K^T, dP = dO V^T, then dQ
+//   += dS K.  All role-0 blocks are scheduled before role-1 blocks.
+//
+// fp32 inputs take a plain-FMA path (one warp per row), which is slow and
+// exact to fp32 rounding.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
-#include <stdint.h>
-
-typedef __nv_bfloat16 bf16;
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int DP = 128;        // head width of the tiles: D <= DP, zero padded
-constexpr int LD = DP + 8;     // shared row stride (bf16 elements)
-constexpr int THREADS = 128;   // 4 warps x 16 rows
-constexpr int ROWS = 64;       // rows a block owns
-constexpr int STEP = 32;       // rows of the other operand per backward iteration
+constexpr int DP = 128;        // head width of the tiles: D <= DP, zero filled
+constexpr int THREADS = 128;   // fp32 path: 4 warps, a row each
+constexpr int ROWS = 64;       // rows of a tile; the consumer warpgroup's rows
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// ------------------------------------------------------- bf16: wgmma + TMA
+
+constexpr int WG_THREADS = 256;                // consumer + producer warpgroup
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 232;   // 2 x 128 x 256 = 64K
+constexpr int TILE = ROWS * DP * 2;            // 16 KB: two 64-column boxes of 8 KB
+// a slot holds two tiles a (0) and b (1) box by box: [box 0 of a | box 0
+// of b | box 1 of a | box 1 of b], so a and b are also one 128-row operand
+constexpr int BOX_STRIDE = 2 * 8192;
+constexpr int SLOT = 2 * TILE;
+constexpr int VEC = 128;                       // floats of a stage's vector
+constexpr int NBARS = 5;                       // resident, full[2], empty[2]
+constexpr int FWD_SMEM = 1024 + TILE + 2 * SLOT + 2 * VEC * 4 + NBARS * 8;
+constexpr int BWD_SMEM = 1024 + SLOT + 2 * SLOT + 2 * VEC * 4 + NBARS * 8;
+constexpr float LN2 = 0.6931471805599453f;
+
+// the base-2 bias of a key: 0 valid, -1e9 log2(e) masked, -inf past T
+__device__ __forceinline__ float key_bias(const float* mrow, int key, int T) {
+  return key < T ? __fmul_rn(__fmul_rn(mrow[key] - 1.0f, 1e9f), LOG2E) : -INFINITY;
 }
 
-// D = A (16x16, row) * B (16x8, col) + D, bf16 inputs, fp32 accumulators
-__device__ __forceinline__ void mma(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// rows [r0, r0 + 64) of slice z of a (BH, T, D) tensor into tile x of a slot
+__device__ __forceinline__ void load_tile(uint8_t* slot, int x, const CUtensorMap* map,
+                                          uint64_t* bar, int r0, int z) {
+  tma_load_3d(slot + x * 8192, map, bar, 0, r0, z);
+  tma_load_3d(slot + BOX_STRIDE + x * 8192, map, bar, 64, r0, z);
 }
 
-// Fragment layouts (lane = 4 * g + t):
-//   A 16x16: a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..), a3 (g+8, 2t+8..)
-//   B 16x8:  b0 (k 2t..2t+1, n g), b1 (k 2t+8..2t+9, n g)
-//   C 16x8:  c0, c1 (g, 2t..2t+1), c2, c3 (g+8, 2t..2t+1)
-
-// A[r][k] = X[r0 + r][k0 + k]
-__device__ __forceinline__ void load_a(uint32_t* a, const bf16* X, int r0, int k0, int g, int t) {
-  const bf16* p = X + (r0 + g) * LD + k0 + 2 * t;
-  a[0] = *reinterpret_cast<const uint32_t*>(p);
-  a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * LD);
-  a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
-  a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * LD + 8);
+// K-major operand of tile x (from x = 0 with N = 128: both tiles), k step kk
+__device__ __forceinline__ uint64_t kdesc(const uint8_t* slot, int x, int kk) {
+  return sw128_desc(slot + (kk >> 2) * BOX_STRIDE + x * 8192 + (kk & 3) * 32, 16, 1024);
 }
 
-// B[k][n] = Y[n0 + n][k0 + k]: the product X Y^T, k contiguous in Y
-__device__ __forceinline__ void load_b_nk(uint32_t* b, const bf16* Y, int n0, int k0, int g, int t) {
-  const bf16* p = Y + (n0 + g) * LD + k0 + 2 * t;
-  b[0] = *reinterpret_cast<const uint32_t*>(p);
-  b[1] = *reinterpret_cast<const uint32_t*>(p + 8);
+// rows [16 kk, 16 kk + 16) of tile x as the K of a product whose N is the
+// tile's 128 columns: MN-major, read through the transpose bit
+__device__ __forceinline__ uint64_t mndesc(const uint8_t* slot, int x, int kk) {
+  return sw128_desc(slot + x * 8192 + kk * 2048, BOX_STRIDE, 1024);
 }
 
-// B[k][n] = Z[k0 + k][n0 + n]: the product X Z, n contiguous in Z
-__device__ __forceinline__ void load_b_kn(uint32_t* b, const bf16* Z, int k0, int n0, int g, int t) {
-  const uint16_t* p = reinterpret_cast<const uint16_t*>(Z) + (k0 + 2 * t) * LD + n0 + g;
-  b[0] = (uint32_t)p[0] | ((uint32_t)p[LD] << 16);
-  b[1] = (uint32_t)p[8 * LD] | ((uint32_t)p[9 * LD] << 16);
+// keep the compiler from reusing a register A operand before wgmma is done
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
-// rows [r0, r0 + R) of a (T, D) bf16 matrix into a zero-padded (R, DP) tile
 template <int R>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int r0, int T, int D) {
-  for (int i = threadIdx.x; i < R * (DP / 8); i += THREADS) {
-    const int r = i / (DP / 8), c = (i % (DP / 8)) * 8;
-    const int row = r0 + r;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row < T && c < D) val = *reinterpret_cast<const uint4*>(src + (size_t)row * D + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
+__device__ __forceinline__ void zero(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) d[i] = 0.f;
+}
+
+// an accumulator of 64 rows x 16 k (columns 16 kk..) as register A operands
+// of the next product, rounded to bf16
+template <int R>
+__device__ __forceinline__ void to_frag(uint32_t (&a)[4][4], const float (&d)[R]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) a[kk][q] = pack_bf16(d[8 * kk + 2 * q], d[8 * kk + 2 * q + 1]);
+}
+
+// scores of NJ groups of 8 keys in base 2: s log2(e) = dot scale log2(e) +
+// bias log2(e), with the bias from the stage's vector
+template <int NJ>
+__device__ __forceinline__ void add_bias(float (&s)[4 * NJ], const float* vec, int cq,
+                                         float scale2) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const float2 b = *reinterpret_cast<const float2*>(vec + 8 * j + cq);
+    s[4 * j] = fmaf(s[4 * j], scale2, b.x);
+    s[4 * j + 1] = fmaf(s[4 * j + 1], scale2, b.y);
+    s[4 * j + 2] = fmaf(s[4 * j + 2], scale2, b.x);
+    s[4 * j + 3] = fmaf(s[4 * j + 3], scale2, b.y);
   }
 }
 
-// key bias of keys [k0, k0 + R): 0 valid, -1e9 masked, -inf past T
-template <int R>
-__device__ __forceinline__ void load_bias(float* dst, const float* mask, int k0, int T) {
-  for (int i = threadIdx.x; i < R; i += THREADS) {
-    const int key = k0 + i;
-    dst[i] = key < T ? (mask[key] - 1.0f) * 1e9f : -INFINITY;
+__device__ __forceinline__ void init_bars(uint64_t* bars) {
+  mbar_init(&bars[0], 1);
+  for (int s = 0; s < 2; ++s) {
+    mbar_init(&bars[1 + s], 32);   // the producer warp's lanes
+    mbar_init(&bars[3 + s], 4);    // the consumer's warps
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// the consumer is done with stage s (every lane's reads of it included)
+__device__ __forceinline__ void release(uint64_t* bars, int s, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(&bars[3 + s]);
+}
+
+// grid (ceil(T / 64), BH): 64 queries a block against all keys.  Items
+// 0..n1-1 are pass 1's 128-key steps (two K tiles), then pass 2's 64-key
+// tiles (K in tile a, V in tile b)
+__global__ void __launch_bounds__(WG_THREADS, 2)
+fwd_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+         const __grid_constant__ CUtensorMap vmap, const float* __restrict__ mask,
+         float* __restrict__ out, float* __restrict__ lse, int T, int D, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint8_t* qs = smem;
+  uint8_t* stages = smem + TILE;
+  float* vecs = reinterpret_cast<float*>(stages + 2 * SLOT);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(vecs + 2 * VEC);
+  const int bh = blockIdx.y, q0 = blockIdx.x * ROWS;
+  const int n1 = (T + 127) / 128, items = n1 + (T + 63) / 64;
+
+  if (threadIdx.x == 0) init_bars(bars);
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // producer: one warp; the rest of its warpgroup only gives registers back
+    reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x >= 160) return;
+    const int lane = threadIdx.x & 31;
+    const float* mrow = mask + static_cast<size_t>(bh) * T;
+    if (lane == 0) {
+      mbar_expect_tx(&bars[0], TILE);
+      tma_load_3d(qs, &qmap, &bars[0], 0, q0, bh);
+      tma_load_3d(qs + 8192, &qmap, &bars[0], 64, q0, bh);
+    }
+    for (int i = 0; i < items; ++i) {
+      const int s = i & 1;
+      const bool pass1 = i < n1;
+      const int kv0 = pass1 ? 128 * i : 64 * (i - n1);
+      float b[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) b[e] = key_bias(mrow, kv0 + lane + 32 * e, T);
+      if (i >= 2) mbar_wait(&bars[3 + s], ((i >> 1) - 1) & 1);
+      float* vec = vecs + s * VEC;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) vec[lane + 32 * e] = b[e];
+      if (lane == 0) {
+        uint8_t* st = stages + s * SLOT;
+        mbar_expect_tx(&bars[1 + s], SLOT);
+        load_tile(st, 0, &kmap, &bars[1 + s], kv0, bh);
+        if (pass1) load_tile(st, 1, &kmap, &bars[1 + s], kv0 + 64, bh);
+        else load_tile(st, 1, &vmap, &bars[1 + s], kv0, bh);
+      } else {
+        mbar_arrive(&bars[1 + s]);
+      }
+    }
+    return;
+  }
+
+  reg_alloc<CONSUMER_REGS>();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, cq = (lane & 3) * 2;
+  const float scale2 = scale * LOG2E;
+  mbar_wait(&bars[0], 0);
+
+  // pass 1: base-2 row max and sum of 2^(s - m) over all keys, 128 a step
+  float m2[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int i = 0; i < n1; ++i) {
+    const int s = i & 1;
+    mbar_wait(&bars[1 + s], (i >> 1) & 1);
+    const uint8_t* st = stages + s * SLOT;
+    float sc[64];
+    zero(sc);
+    fence_regs(sc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_ss<128>(sc, sw128_desc(qs + (kk >> 2) * 8192 + (kk & 3) * 32, 16, 1024),
+                    kdesc(st, 0, kk));
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(sc);
+    add_bias<16>(sc, vecs + s * VEC, cq, scale2);
+    release(bars, s, lane);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * h], sc[4 * j + 2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m2[h], mx);       // finite: key 0 is in every row
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        sum += ex2(sc[4 * j + 2 * h] - m_new) + ex2(sc[4 * j + 2 * h + 1] - m_new);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l[h] = l[h] * ex2(m2[h] - m_new) + sum;
+      m2[h] = m_new;
+    }
+  }
+
+  // pass 2: O += cd(2^(s - m)) V, 64 keys a step, P never leaves registers
+  float acc[DP / 2];
+  zero(acc);
+  for (int i = n1; i < items; ++i) {
+    const int s = i & 1;
+    mbar_wait(&bars[1 + s], (i >> 1) & 1);
+    const uint8_t* st = stages + s * SLOT;
+    float sc[32];
+    zero(sc);
+    fence_regs(sc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_ss<64>(sc, sw128_desc(qs + (kk >> 2) * 8192 + (kk & 3) * 32, 16, 1024),
+                   kdesc(st, 0, kk));
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(sc);
+    add_bias<8>(sc, vecs + s * VEC, cq, scale2);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[4 * j + e] = ex2(sc[4 * j + e] - m2[e >> 1]);
+    uint32_t pa[4][4];
+    to_frag(pa, sc);
+    fence_regs(acc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<128>(acc, pa[kk], mndesc(st, 1, kk));
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(acc);
+    fence_frag(pa);
+    release(bars, s, lane);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + warp * 16 + (lane >> 2) + 8 * h;
+    if (row >= T) continue;
+    const float lc = fmaxf(l[h], 1e-30f);
+    float* orow = out + (static_cast<size_t>(bh) * T + row) * D;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int c = 8 * j + cq;
+      if (c < D)
+        *reinterpret_cast<float2*>(orow + c) =
+            make_float2(acc[4 * j + 2 * h] / lc, acc[4 * j + 2 * h + 1] / lc);
+    }
+    if ((lane & 3) == 0) lse[static_cast<size_t>(bh) * T + row] = m2[h] * LN2 + logf(lc);
   }
 }
+
+// delta = rowsum(do * out) from the fp32 do and out, and do rounded to bf16;
+// 16 threads a row, 8 columns a thread (D % 8 == 0, D <= 128)
+__global__ void __launch_bounds__(256)
+bwd_prep_bf16(const float* __restrict__ dout, const float* __restrict__ out,
+              float* __restrict__ delta, bf16* __restrict__ dout_b, int rows, int D) {
+  const int row = blockIdx.x * 16 + (threadIdx.x >> 4), c = (threadIdx.x & 15) * 8;
+  float s = 0.f;
+  if (row < rows && c < D) {
+    const size_t i = static_cast<size_t>(row) * D + c;
+    const float4 d0 = *reinterpret_cast<const float4*>(dout + i);
+    const float4 d1 = *reinterpret_cast<const float4*>(dout + i + 4);
+    const float4 o0 = *reinterpret_cast<const float4*>(out + i);
+    const float4 o1 = *reinterpret_cast<const float4*>(out + i + 4);
+    s = d0.x * o0.x + d0.y * o0.y + d0.z * o0.z + d0.w * o0.w +
+        d1.x * o1.x + d1.y * o1.y + d1.z * o1.z + d1.w * o1.w;
+    uint4 h;
+    h.x = pack_bf16(d0.x, d0.y);
+    h.y = pack_bf16(d0.z, d0.w);
+    h.z = pack_bf16(d1.x, d1.y);
+    h.w = pack_bf16(d1.z, d1.w);
+    *reinterpret_cast<uint4*>(dout_b + i) = h;
+  }
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (row < rows && (threadIdx.x & 15) == 0) delta[row] = s;
+}
+
+// role 0: dK, dV of the keys [r0, r0 + 64) (K in tile a, V in tile b of the
+// resident slot) over the query tiles (Q in a, dO in b of each stage, their
+// base-2 lse and delta in the stage's vector; lse +inf past T)
+__device__ __forceinline__ void dkdv_consumer(const uint8_t* res, const uint8_t* stages,
+                                              const float* vecs, uint64_t* bars,
+                                              const float* mrow, bf16* dk, bf16* dv,
+                                              int r0, int n, int T, int D, float scale) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, cq = (lane & 3) * 2;
+  const float scale2 = scale * LOG2E;
+  float kb[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) kb[h] = key_bias(mrow, r0 + warp * 16 + (lane >> 2) + 8 * h, T);
+  mbar_wait(&bars[0], 0);
+  float dka[DP / 2], dva[DP / 2];
+  zero(dka);
+  zero(dva);
+  for (int i = 0; i < n; ++i) {
+    const int s = i & 1;
+    mbar_wait(&bars[1 + s], (i >> 1) & 1);
+    const uint8_t* st = stages + s * SLOT;
+    float sc[32], dp[32];
+    zero(sc);
+    zero(dp);
+    fence_regs(sc);
+    fence_regs(dp);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) wgmma_ss<64>(sc, kdesc(res, 0, kk), kdesc(st, 0, kk));
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) wgmma_ss<64>(dp, kdesc(res, 1, kk), kdesc(st, 1, kk));
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+    const float2* qv = reinterpret_cast<const float2*>(vecs + s * VEC);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float2 x = qv[8 * j + cq + e];     // (lse log2(e), delta) of the query
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int idx = 4 * j + 2 * h + e;
+          const float p = ex2(fmaf(sc[idx], scale2, kb[h]) - x.x);
+          dp[idx] = p * (dp[idx] - x.y) * scale;
+          sc[idx] = p;
+        }
+      }
+    uint32_t pa[4][4], pd[4][4];
+    to_frag(pa, sc);
+    to_frag(pd, dp);
+    fence_regs(dva);
+    fence_regs(dka);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<128>(dva, pa[kk], mndesc(st, 1, kk));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<128>(dka, pd[kk], mndesc(st, 0, kk));
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(dva);
+    fence_regs(dka);
+    fence_frag(pa);
+    fence_frag(pd);
+    release(bars, s, lane);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + warp * 16 + (lane >> 2) + 8 * h;
+    if (row >= T) continue;
+    bf16* krow = dk + static_cast<size_t>(row) * D;
+    bf16* vrow = dv + static_cast<size_t>(row) * D;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int c = 8 * j + cq;
+      if (c < D) {
+        *reinterpret_cast<__nv_bfloat162*>(krow + c) =
+            __floats2bfloat162_rn(dka[4 * j + 2 * h], dka[4 * j + 2 * h + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(vrow + c) =
+            __floats2bfloat162_rn(dva[4 * j + 2 * h], dva[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+// role 1: dQ of the queries [r0, r0 + 64) (Q in tile a, dO in tile b of the
+// resident slot) over the key tiles (K in a, V in b of each stage, their
+// base-2 biases in the stage's vector)
+__device__ __forceinline__ void dq_consumer(const uint8_t* res, const uint8_t* stages,
+                                            const float* vecs, uint64_t* bars,
+                                            const float* lrow, const float* drow, bf16* dq,
+                                            int r0, int n, int T, int D, float scale) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, cq = (lane & 3) * 2;
+  const float scale2 = scale * LOG2E;
+  float l2[2], de[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + warp * 16 + (lane >> 2) + 8 * h;
+    l2[h] = row < T ? __fmul_rn(lrow[row], LOG2E) : INFINITY;
+    de[h] = row < T ? drow[row] : 0.f;
+  }
+  mbar_wait(&bars[0], 0);
+  float dqa[DP / 2];
+  zero(dqa);
+  for (int i = 0; i < n; ++i) {
+    const int s = i & 1;
+    mbar_wait(&bars[1 + s], (i >> 1) & 1);
+    const uint8_t* st = stages + s * SLOT;
+    float sc[32], dp[32];
+    zero(sc);
+    zero(dp);
+    fence_regs(sc);
+    fence_regs(dp);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) wgmma_ss<64>(sc, kdesc(res, 0, kk), kdesc(st, 0, kk));
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) wgmma_ss<64>(dp, kdesc(res, 1, kk), kdesc(st, 1, kk));
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+    add_bias<8>(sc, vecs + s * VEC, cq, scale2);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1, idx = 4 * j + e;
+        dp[idx] = ex2(sc[idx] - l2[h]) * (dp[idx] - de[h]) * scale;
+      }
+    uint32_t pd[4][4];
+    to_frag(pd, dp);
+    fence_regs(dqa);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<128>(dqa, pd[kk], mndesc(st, 0, kk));
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(dqa);
+    fence_frag(pd);
+    release(bars, s, lane);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + warp * 16 + (lane >> 2) + 8 * h;
+    if (row >= T) continue;
+    bf16* qrow = dq + static_cast<size_t>(row) * D;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int c = 8 * j + cq;
+      if (c < D)
+        *reinterpret_cast<__nv_bfloat162*>(qrow + c) =
+            __floats2bfloat162_rn(dqa[4 * j + 2 * h], dqa[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+// grid (ceil(T / 64), BH, 2): z = 0 the dK/dV role of a key tile, z = 1 the
+// dQ role of a query tile; delta and dout_b come from bwd_prep_bf16
+__global__ void __launch_bounds__(WG_THREADS, 2)
+bwd_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+         const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap dmap,
+         const float* __restrict__ mask, const float* __restrict__ lse,
+         const float* __restrict__ delta, bf16* __restrict__ dq, bf16* __restrict__ dk,
+         bf16* __restrict__ dv, int T, int D, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint8_t* res = smem;                   // role 0: K | V; role 1: Q | dO
+  uint8_t* stages = smem + SLOT;         // role 0: Q | dO; role 1: K | V
+  float* vecs = reinterpret_cast<float*>(stages + 2 * SLOT);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(vecs + 2 * VEC);
+  const bool keys = blockIdx.z == 0;
+  const int bh = blockIdx.y, r0 = blockIdx.x * ROWS, n = (T + ROWS - 1) / ROWS;
+  const size_t base = static_cast<size_t>(bh) * T;
+
+  if (threadIdx.x == 0) init_bars(bars);
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x >= 160) return;
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) {
+      mbar_expect_tx(&bars[0], SLOT);
+      load_tile(res, 0, keys ? &kmap : &qmap, &bars[0], r0, bh);
+      load_tile(res, 1, keys ? &vmap : &dmap, &bars[0], r0, bh);
+    }
+    for (int i = 0; i < n; ++i) {
+      const int s = i & 1, c0 = i * ROWS;
+      // two entries a lane: the queries' (lse log2(e), delta), +inf and 0
+      // past T (role 0), or the keys' biases (role 1)
+      float2 x[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = c0 + 2 * lane + e;
+        if (keys)
+          x[e] = r < T ? make_float2(__fmul_rn(lse[base + r], LOG2E), delta[base + r])
+                       : make_float2(INFINITY, 0.f);
+        else
+          x[e].x = key_bias(mask + base, r, T);
+      }
+      if (i >= 2) mbar_wait(&bars[3 + s], ((i >> 1) - 1) & 1);
+      float* vec = vecs + s * VEC;
+      if (keys) {
+        reinterpret_cast<float2*>(vec)[2 * lane] = x[0];
+        reinterpret_cast<float2*>(vec)[2 * lane + 1] = x[1];
+      } else {
+        vec[2 * lane] = x[0].x;
+        vec[2 * lane + 1] = x[1].x;
+      }
+      if (lane == 0) {
+        uint8_t* st = stages + s * SLOT;
+        mbar_expect_tx(&bars[1 + s], SLOT);
+        load_tile(st, 0, keys ? &qmap : &kmap, &bars[1 + s], c0, bh);
+        load_tile(st, 1, keys ? &dmap : &vmap, &bars[1 + s], c0, bh);
+      } else {
+        mbar_arrive(&bars[1 + s]);
+      }
+    }
+    return;
+  }
+
+  reg_alloc<CONSUMER_REGS>();
+  if (keys)
+    dkdv_consumer(res, stages, vecs, bars, mask + base, dk + base * D, dv + base * D, r0, n, T,
+                  D, scale);
+  else
+    dq_consumer(res, stages, vecs, bars, lse + base, delta + base, dq + base * D, r0, n, T, D,
+                scale);
+}
+
+// ------------------------------------------------------- fp32: plain FMA
 
 __device__ __forceinline__ float score(float dot, float scale, float bias) {
   return __fadd_rn(__fmul_rn(dot, scale), bias);
 }
 
-// s[nt] (16 rows x 8 keys each) = X rows [r0, r0+16) . Y rows [n0 + 8 nt, ...)
-template <int NT>
-__device__ __forceinline__ void qk(float (*s)[4], const bf16* X, int r0, const bf16* Y, int n0,
-                                   int nk, int g, int t) {
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-  for (int kk = 0; kk < nk; ++kk) {
-    uint32_t a[4];
-    load_a(a, X, r0, kk * 16, g, t);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      uint32_t b[2];
-      load_b_nk(b, Y, n0 + nt * 8, kk * 16, g, t);
-      mma(s[nt], a, b);
-    }
-  }
-}
-
-// acc[dt] (16 rows x 8 of DP) += P (16 x 16*KC, from C fragments) @ Z rows
-template <int KC>
-__device__ __forceinline__ void pv(float (*acc)[4], float (*p)[4], const bf16* Z, int nd,
-                                   int g, int t) {
-#pragma unroll
-  for (int kc = 0; kc < KC; ++kc) {
-    uint32_t a[4];
-    a[0] = pack_bf16(p[2 * kc][0], p[2 * kc][1]);
-    a[1] = pack_bf16(p[2 * kc][2], p[2 * kc][3]);
-    a[2] = pack_bf16(p[2 * kc + 1][0], p[2 * kc + 1][1]);
-    a[3] = pack_bf16(p[2 * kc + 1][2], p[2 * kc + 1][3]);
-#pragma unroll
-    for (int dt = 0; dt < DP / 8; ++dt) {
-      if (dt < nd) {
-        uint32_t b[2];
-        load_b_kn(b, Z, kc * 16, dt * 8, g, t);
-        mma(acc[dt], a, b);
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-constexpr int FWD_SMEM = 3 * ROWS * LD * 2 + ROWS * 4;
-
-// grid (ceil(T / 64), BH); each warp owns 16 query rows
-__global__ void __launch_bounds__(THREADS)
-fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-         const float* __restrict__ mask, float* __restrict__ out, float* __restrict__ lse,
-         int T, int D, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + ROWS * LD;
-  bf16* Vs = Ks + ROWS * LD;
-  float* bias = reinterpret_cast<float*>(Vs + ROWS * LD);
-  const int bh = blockIdx.y, q0 = blockIdx.x * ROWS;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const size_t base = (size_t)bh * T * D;
-  const float* mrow = mask + (size_t)bh * T;
-  const int nk = (D + 15) / 16, nd = (D + 7) / 8, r0 = warp * 16;
-
-  load_tile<ROWS>(Qs, q + base, q0, T, D);
-
-  // pass 1: row max and sum over all keys (rows g and g + 8 of the warp)
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  for (int kv0 = 0; kv0 < T; kv0 += ROWS) {
-    __syncthreads();
-    load_tile<ROWS>(Ks, k + base, kv0, T, D);
-    load_bias<ROWS>(bias, mrow, kv0, T);
-    __syncthreads();
-    float s[8][4];
-    qk<8>(s, Qs, r0, Ks, 0, nk, g, t);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const float x = score(s[nt][2 * h + j], scale, bias[nt * 8 + 2 * t + j]);
-          s[nt][2 * h + j] = x;
-          mx = fmaxf(mx, x);
-        }
-      const float m_new = fmaxf(m[h], quad_max(mx));
-      float sum = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) sum += expf(s[nt][2 * h + j] - m_new);
-      l[h] = l[h] * expf(m[h] - m_new) + quad_sum(sum);
-      m[h] = m_new;
-    }
-  }
-
-  // pass 2: out = cd(exp(s - m)) @ v, divided by l at the end
-  float acc[DP / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < DP / 8; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  for (int kv0 = 0; kv0 < T; kv0 += ROWS) {
-    __syncthreads();
-    load_tile<ROWS>(Ks, k + base, kv0, T, D);
-    load_tile<ROWS>(Vs, v + base, kv0, T, D);
-    load_bias<ROWS>(bias, mrow, kv0, T);
-    __syncthreads();
-    float s[8][4];
-    qk<8>(s, Qs, r0, Ks, 0, nk, g, t);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float b = bias[nt * 8 + 2 * t + (c & 1)];
-        s[nt][c] = b == -INFINITY ? 0.f : expf(score(s[nt][c], scale, b) - m[c >> 1]);
-      }
-    pv<4>(acc, s, Vs, nd, g, t);
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = q0 + r0 + g + 8 * h;
-    if (row >= T) continue;
-    const float lc = fmaxf(l[h], 1e-30f);
-    float* orow = out + base + (size_t)row * D;
-#pragma unroll
-    for (int dt = 0; dt < DP / 8; ++dt) {
-      const int col = dt * 8 + 2 * t;
-      if (col < D) orow[col] = acc[dt][2 * h] / lc;
-      if (col + 1 < D) orow[col + 1] = acc[dt][2 * h + 1] / lc;
-    }
-    if (t == 0) lse[(size_t)bh * T + row] = m[h] + logf(lc);
-  }
-}
-
-// delta = rowsum(do * out) (fp32) and, for bf16, do rounded to bf16;
-// one warp per row
+// delta = rowsum(do * out) (fp32); one warp per row
 __global__ void __launch_bounds__(THREADS)
 bwd_delta(const float* __restrict__ dout, const float* __restrict__ out, float* __restrict__ delta,
-          bf16* __restrict__ dout_b, int rows, int D) {
+          int rows, int D) {
   const int row = blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (row >= rows) return;
   const float* d = dout + (size_t)row * D;
   const float* o = out + (size_t)row * D;
   float s = 0.f;
-  for (int c = lane; c < D; c += 32) {
-    s += d[c] * o[c];
-    if (dout_b) dout_b[(size_t)row * D + c] = __float2bfloat16_rn(d[c]);
-  }
+  for (int c = lane; c < D; c += 32) s += d[c] * o[c];
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
   if (lane == 0) delta[row] = s;
 }
 
-constexpr int BWD_SMEM = 2 * (ROWS + STEP) * LD * 2 + 2 * ROWS * 4;
-
-// grid (ceil(T / 64), BH); each warp owns 16 keys and loops over all queries
-__global__ void __launch_bounds__(THREADS)
-bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-              const float* __restrict__ mask, const float* __restrict__ lse,
-              const float* __restrict__ delta, const bf16* __restrict__ dout_b,
-              bf16* __restrict__ dk, bf16* __restrict__ dv, int T, int D, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + ROWS * LD;
-  bf16* Qs = Vs + ROWS * LD;
-  bf16* Ds = Qs + STEP * LD;
-  float* kbias = reinterpret_cast<float*>(Ds + STEP * LD);
-  float* lse_s = kbias + ROWS;
-  float* del_s = lse_s + STEP;
-  const int bh = blockIdx.y, k0 = blockIdx.x * ROWS;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const size_t base = (size_t)bh * T * D;
-  const int nk = (D + 15) / 16, nd = (D + 7) / 8, r0 = warp * 16;
-
-  load_tile<ROWS>(Ks, k + base, k0, T, D);
-  load_tile<ROWS>(Vs, v + base, k0, T, D);
-  load_bias<ROWS>(kbias, mask + (size_t)bh * T, k0, T);
-  float bk[2];
-
-  float dka[DP / 8][4], dva[DP / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < DP / 8; ++dt)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) dka[dt][c] = dva[dt][c] = 0.f;
-
-  for (int q0 = 0; q0 < T; q0 += STEP) {
-    __syncthreads();
-    load_tile<STEP>(Qs, q + base, q0, T, D);
-    load_tile<STEP>(Ds, dout_b + base, q0, T, D);
-    for (int i = threadIdx.x; i < STEP; i += THREADS) {
-      const bool ok = q0 + i < T;
-      lse_s[i] = ok ? lse[(size_t)bh * T + q0 + i] : 0.f;
-      del_s[i] = ok ? delta[(size_t)bh * T + q0 + i] : 0.f;
-    }
-    __syncthreads();
-    bk[0] = kbias[r0 + g];
-    bk[1] = kbias[r0 + g + 8];
-    // S^T (16 keys x 32 queries) and dP^T = V dO^T
-    float st[4][4], dpt[4][4];
-    qk<4>(st, Ks, r0, Qs, 0, nk, g, t);
-    qk<4>(dpt, Vs, r0, Ds, 0, nk, g, t);
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int qi = nt * 8 + 2 * t + (c & 1);
-        const float b = bk[c >> 1];
-        const bool ok = q0 + qi < T && b != -INFINITY;
-        const float p = ok ? expf(score(st[nt][c], scale, b) - lse_s[qi]) : 0.f;
-        st[nt][c] = p;
-        dpt[nt][c] = p * (dpt[nt][c] - del_s[qi]) * scale;
-      }
-    pv<2>(dva, st, Ds, nd, g, t);
-    pv<2>(dka, dpt, Qs, nd, g, t);
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = k0 + r0 + g + 8 * h;
-    if (row >= T) continue;
-#pragma unroll
-    for (int dt = 0; dt < DP / 8; ++dt)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = dt * 8 + 2 * t + j;
-        if (col < D) {
-          dk[base + (size_t)row * D + col] = __float2bfloat16_rn(dka[dt][2 * h + j]);
-          dv[base + (size_t)row * D + col] = __float2bfloat16_rn(dva[dt][2 * h + j]);
-        }
-      }
-  }
-}
-
-// grid (ceil(T / 64), BH); each warp owns 16 queries and loops over all keys
-__global__ void __launch_bounds__(THREADS)
-bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-            const float* __restrict__ mask, const float* __restrict__ lse,
-            const float* __restrict__ delta, const bf16* __restrict__ dout_b,
-            bf16* __restrict__ dq, int T, int D, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ds = Qs + ROWS * LD;
-  bf16* Ks = Ds + ROWS * LD;
-  bf16* Vs = Ks + STEP * LD;
-  float* kbias = reinterpret_cast<float*>(Vs + STEP * LD);
-  const int bh = blockIdx.y, q0 = blockIdx.x * ROWS;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const size_t base = (size_t)bh * T * D;
-  const int nk = (D + 15) / 16, nd = (D + 7) / 8, r0 = warp * 16;
-
-  load_tile<ROWS>(Qs, q + base, q0, T, D);
-  load_tile<ROWS>(Ds, dout_b + base, q0, T, D);
-  float ls[2], de[2];
-  bool ok_row[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = q0 + r0 + g + 8 * h;
-    ok_row[h] = row < T;
-    ls[h] = ok_row[h] ? lse[(size_t)bh * T + row] : 0.f;
-    de[h] = ok_row[h] ? delta[(size_t)bh * T + row] : 0.f;
-  }
-
-  float acc[DP / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < DP / 8; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-
-  for (int kv0 = 0; kv0 < T; kv0 += STEP) {
-    __syncthreads();
-    load_tile<STEP>(Ks, k + base, kv0, T, D);
-    load_tile<STEP>(Vs, v + base, kv0, T, D);
-    load_bias<STEP>(kbias, mask + (size_t)bh * T, kv0, T);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    qk<4>(s, Qs, r0, Ks, 0, nk, g, t);
-    qk<4>(dp, Ds, r0, Vs, 0, nk, g, t);
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float b = kbias[nt * 8 + 2 * t + (c & 1)];
-        const int h = c >> 1;
-        const bool ok = ok_row[h] && b != -INFINITY;
-        const float p = ok ? expf(score(s[nt][c], scale, b) - ls[h]) : 0.f;
-        dp[nt][c] = p * (dp[nt][c] - de[h]) * scale;
-      }
-    pv<2>(acc, dp, Ks, nd, g, t);
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = q0 + r0 + g + 8 * h;
-    if (row >= T) continue;
-#pragma unroll
-    for (int dt = 0; dt < DP / 8; ++dt)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = dt * 8 + 2 * t + j;
-        if (col < D) dq[base + (size_t)row * D + col] = __float2bfloat16_rn(acc[dt][2 * h + j]);
-      }
-  }
-}
-
-// ------------------------------------------------------- fp32: plain FMA
 
 constexpr int PER = DP / 32;   // columns per lane
 
@@ -567,8 +732,10 @@ bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k, const flo
   }
 }
 
-cudaError_t set_smem(const void* fn, int bytes) {
-  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+bool flash_map(CUtensorMap* map, const void* ptr, int BH, int T, int D) {
+  const uint64_t dims[3] = {(uint64_t)D, (uint64_t)T, (uint64_t)BH};
+  const uint64_t strides[2] = {(uint64_t)D * 2, (uint64_t)T * D * 2};
+  return bf16_map(map, ptr, 3, dims, strides, ROWS);
 }
 
 }  // namespace
@@ -576,23 +743,29 @@ cudaError_t set_smem(const void* fn, int bytes) {
 extern "C" {
 
 const char* mtts_flash_error_string(int e) {
+  if (e == ERR_TENSOR_MAP)
+    return "cuTensorMapEncodeTiled is unavailable or refused a tensor map";
   return cudaGetErrorString(static_cast<cudaError_t>(e));
 }
 
-// Forward.  q, k, v: (BH, T, D) bf16 (is_bf16) or fp32; mask: (BH, T) fp32
-// {0, 1}; out: (BH, T, D) fp32; lse: (BH, T) fp32.  D <= 128, and a
-// multiple of 8 for bf16.  Returns the first CUDA error (0 on success).
+// Forward.  q, k, v: (BH, T, D) bf16 (is_bf16) or fp32, 16-byte aligned;
+// mask: (BH, T) fp32 {0, 1}; out: (BH, T, D) fp32; lse: (BH, T) fp32.
+// D <= 128, and a multiple of 8 for bf16.  Returns the first CUDA error (0
+// on success); one launch on `stream`.
 int mtts_flash_fwd(const void* q, const void* k, const void* v, const float* mask, float* out,
                    float* lse, int BH, int T, int D, int is_bf16, float scale, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (D > DP || D < 1 || (is_bf16 && D % 8)) return cudaErrorInvalidValue;
-  cudaError_t e;
   if (is_bf16) {
-    if ((e = set_smem((const void*)fwd_bf16, FWD_SMEM)) != cudaSuccess) return e;
-    dim3 grid((T + ROWS - 1) / ROWS, BH);
-    fwd_bf16<<<grid, THREADS, FWD_SMEM, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        mask, out, lse, T, D, scale);
+    static bool attr[64] = {false};
+    const cudaError_t e = set_smem_once(fwd_bf16, FWD_SMEM, attr);
+    if (e != cudaSuccess) return e;
+    CUtensorMap qm, km, vm;
+    if (!flash_map(&qm, q, BH, T, D) || !flash_map(&km, k, BH, T, D) ||
+        !flash_map(&vm, v, BH, T, D))
+      return ERR_TENSOR_MAP;
+    fwd_bf16<<<dim3((T + ROWS - 1) / ROWS, BH), WG_THREADS, FWD_SMEM, stream>>>(
+        qm, km, vm, mask, out, lse, T, D, scale);
   } else {
     dim3 grid((T + 3) / 4, BH);
     fwd_f32<<<grid, THREADS, 0, stream>>>(
@@ -603,8 +776,9 @@ int mtts_flash_fwd(const void* q, const void* k, const void* v, const float* mas
 }
 
 // Backward.  As the forward, plus out, lse from it; dout: (BH, T, D) fp32;
-// scratch: delta (BH, T) fp32 and, for bf16, dout_b (BH, T, D) bf16;
-// dq, dk, dv: (BH, T, D) in the input dtype.  Three launches on `stream`.
+// scratch: delta (BH, T) fp32 and, for bf16, dout_b (BH, T, D) bf16, 16-byte
+// aligned; dq, dk, dv: (BH, T, D) in the input dtype.  Two launches (bf16)
+// or three (fp32) on `stream`.
 int mtts_flash_bwd(const void* q, const void* k, const void* v, const float* mask,
                    const float* out, const float* lse, const float* dout, float* delta,
                    void* dout_b, void* dq, void* dk, void* dv, int BH, int T, int D, int is_bf16,
@@ -613,22 +787,22 @@ int mtts_flash_bwd(const void* q, const void* k, const void* v, const float* mas
   if (D > DP || D < 1 || (is_bf16 && (D % 8 || !dout_b))) return cudaErrorInvalidValue;
   cudaError_t e;
   const int rows = BH * T;
-  bwd_delta<<<(rows + 3) / 4, THREADS, 0, stream>>>(
-      dout, out, delta, is_bf16 ? static_cast<bf16*>(dout_b) : nullptr, rows, D);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
   if (is_bf16) {
-    if ((e = set_smem((const void*)bwd_dkdv_bf16, BWD_SMEM)) != cudaSuccess) return e;
-    if ((e = set_smem((const void*)bwd_dq_bf16, BWD_SMEM)) != cudaSuccess) return e;
-    dim3 grid((T + ROWS - 1) / ROWS, BH);
-    const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
-               *vb = static_cast<const bf16*>(v), *db = static_cast<const bf16*>(dout_b);
-    bwd_dkdv_bf16<<<grid, THREADS, BWD_SMEM, stream>>>(
-        qb, kb, vb, mask, lse, delta, db, static_cast<bf16*>(dk), static_cast<bf16*>(dv), T, D,
-        scale);
+    static bool attr[64] = {false};
+    if ((e = set_smem_once(bwd_bf16, BWD_SMEM, attr)) != cudaSuccess) return e;
+    CUtensorMap qm, km, vm, dm;
+    if (!flash_map(&qm, q, BH, T, D) || !flash_map(&km, k, BH, T, D) ||
+        !flash_map(&vm, v, BH, T, D) || !flash_map(&dm, dout_b, BH, T, D))
+      return ERR_TENSOR_MAP;
+    bwd_prep_bf16<<<(rows + 15) / 16, 256, 0, stream>>>(dout, out, delta,
+                                                       static_cast<bf16*>(dout_b), rows, D);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
-    bwd_dq_bf16<<<grid, THREADS, BWD_SMEM, stream>>>(qb, kb, vb, mask, lse, delta, db,
-                                                      static_cast<bf16*>(dq), T, D, scale);
+    bwd_bf16<<<dim3((T + ROWS - 1) / ROWS, BH, 2), WG_THREADS, BWD_SMEM, stream>>>(
+        qm, km, vm, dm, mask, lse, delta, static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), T, D, scale);
   } else {
+    bwd_delta<<<(rows + 3) / 4, THREADS, 0, stream>>>(dout, out, delta, rows, D);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
     dim3 grid((T + 3) / 4, BH);
     const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
                 *vf = static_cast<const float*>(v);

@@ -2,14 +2,17 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, under ``csrc/build/`` (listed in
-``.gitignore``).  Host C++ shared with the TPU package (the repository's
-``csrc/``: native F0 and FLAC) is compiled by ``g++`` with that directory's
-Makefile flags into the same build directory.  A library's file name
-carries a hash of its sources and flags, so an edited source is rebuilt and
-an unchanged one is reused.  Nothing is built when a module is imported.
+``.gitignore``); the headers beside it (``csrc/*.cuh``) may be included.
+Host C++ shared with the TPU package (the repository's ``csrc/``: native F0
+and FLAC) is compiled by ``g++`` with that directory's Makefile flags into
+the same build directory.  A library's file name carries a hash of its
+sources, the headers they may include and the flags, so an edited source or
+header is rebuilt and an unchanged one is reused.  Nothing is built when a
+module is imported.
 """
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -43,9 +46,9 @@ def _nvcc():
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _compile(name, compiler, flags, sources):
+def _compile(name, compiler, flags, sources, headers=()):
     digest = hashlib.sha256(" ".join(flags).encode())
-    for src in sources:
+    for src in (*sources, *headers):
         with open(src, "rb") as f:
             digest.update(f.read())
     lib_path = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
@@ -67,9 +70,13 @@ def _compile(name, compiler, flags, sources):
     return lib_path
 
 
-def build(name):
-    """Compile ``csrc/<name>.cu`` if needed; return the library's path."""
-    return _compile(name, _nvcc(), NVCC_FLAGS, [os.path.join(CSRC, name + ".cu")])
+def build(name, source=None):
+    """Compile ``csrc/<name>.cu`` (or ``source``, a CUDA file elsewhere that
+    may include the headers of ``csrc/``) if needed; return the library's
+    path."""
+    headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+    return _compile(name, _nvcc(), NVCC_FLAGS + ["-I", CSRC],
+                    [source or os.path.join(CSRC, name + ".cu")], headers)
 
 
 def build_host(name, sources):

@@ -11,7 +11,10 @@ gradients come back in the input dtype.
 
 ``flash_attention_fwd`` and ``flash_attention_bwd`` launch their kernel on a
 CUDA tensor (or raise) and run the plain version on a CPU tensor; each
-counts its launches in ``.launches``.  ``flash_attention`` is their
+counts its launches in ``.launches``.  A call's host path is kept short: the
+fp32 scale is cached per head width, the backward's scratch (delta and the
+bf16 copy of the cotangent) is one allocation a call, and the C side sets its shared-memory attributes once and
+encodes the tensor maps itself.  ``flash_attention`` is their
 ``torch.autograd.Function``: differentiable once, and a second
 differentiation raises, as with the TPU kernel's ``custom_vjp``.
 """
@@ -38,6 +41,17 @@ _SIGNATURES = {
 def _scale(d):
     # the TPU kernel's 1 / sqrt(D), a double rounded once to fp32
     return float(torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32))
+
+
+_scales = {}
+
+
+def kernel_scale(d):
+    """``_scale(d)``, computed once per head width (the kernels' argument)."""
+    s = _scales.get(d)
+    if s is None:
+        s = _scales[d] = _scale(d)
+    return s
 
 
 def _bias(mask):
@@ -123,12 +137,11 @@ def _cuda_inputs(name, q, k, v, mask):
     return _ready(q), _ready(k), _ready(v), _ready(mask, torch.float32)
 
 
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
-
-
 def _stream(dev):
-    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    """The current stream's handle on ``dev``, read without building a
+    ``torch.cuda.Stream`` (which takes 7-8 us a call on an H100 machine's
+    host; tools/flash_ablate.py)."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
 def flash_attention_fwd(q, k, v, mask):
@@ -143,8 +156,9 @@ def flash_attention_fwd(q, k, v, mask):
     if BH * T == 0:
         return out, lse
     lib = _lib()
-    err = lib.mtts_flash_fwd(_ptr(q), _ptr(k), _ptr(v), _ptr(mask), _ptr(out), _ptr(lse),
-                             BH, T, D, int(q.dtype == torch.bfloat16), _scale(D),
+    err = lib.mtts_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+                             out.data_ptr(), lse.data_ptr(), BH, T, D,
+                             int(q.dtype == torch.bfloat16), kernel_scale(D),
                              _stream(q.device))
     _check("flash_attention_fwd", err, lib)
     flash_attention_fwd.launches += 1
@@ -165,13 +179,16 @@ def flash_attention_bwd(q, k, v, mask, out, lse, dout):
     if BH * T == 0:
         return dq, dk, dv
     bf = q.dtype == torch.bfloat16
-    delta = torch.empty(BH, T, dtype=torch.float32, device=q.device)
-    dout_b = torch.empty(BH, T, D, dtype=torch.bfloat16, device=q.device) if bf else None
+    # scratch: delta (BH, T) fp32, then dout_b (BH, T, D) bf16 for bf16 inputs
+    at = (BH * T * 4 + 255) // 256 * 256
+    scratch = torch.empty(at + (BH * T * D * 2 if bf else 0), dtype=torch.uint8,
+                          device=q.device)
+    ws = scratch.data_ptr()
     lib = _lib()
-    err = lib.mtts_flash_bwd(_ptr(q), _ptr(k), _ptr(v), _ptr(mask), _ptr(out), _ptr(lse),
-                             _ptr(dout), _ptr(delta),
-                             _ptr(dout_b) if bf else ctypes.c_void_p(0),
-                             _ptr(dq), _ptr(dk), _ptr(dv), BH, T, D, int(bf), _scale(D),
+    err = lib.mtts_flash_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+                             out.data_ptr(), lse.data_ptr(), dout.data_ptr(), ws,
+                             ws + at if bf else None, dq.data_ptr(), dk.data_ptr(),
+                             dv.data_ptr(), BH, T, D, int(bf), kernel_scale(D),
                              _stream(q.device))
     _check("flash_attention_bwd", err, lib)
     flash_attention_bwd.launches += 1

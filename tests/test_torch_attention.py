@@ -170,3 +170,124 @@ def test_unfused_mha_bf16_rounds_as_jax(impl, monkeypatch):
                         lambda s: torch.softmax(s.float(), -1).to(s.dtype))
     d_fp32 = np.abs(run().float().numpy() - ref)
     assert (d_fp32 > 0).mean() > 0.1
+
+
+# ------------------------------- the bf16 kernels' decomposition (CPU)
+#
+# The Hopper kernels run only on the card.  These emulate, in torch on the
+# CPU, the order in which they compute: the forward's 128-key steps of pass
+# 1 (base-2 running max and sum), then pass 2's 64-key tiles with
+# 2^(s - m) rounded to bf16 before P V and the division last; the
+# backward's dK/dV per 64-key tile over the 64-query tiles and dQ per
+# 64-query tile over the 64-key tiles, fp32 accumulation in that order.
+# Scores are in base 2, s log2(e) = fma(dot, scale log2(e), bias log2(e)),
+# as the kernels form them.  They are held against the plain versions at
+# the bf16 tolerances, at a ragged T and at a head width that is a multiple
+# of 8 and not of 16.
+
+LOG2E = np.float32(1.4426950408889634)
+LN2 = np.float32(0.6931471805599453)
+
+
+def _fma(a, b, c):
+    """a * b + c rounded once to fp32 (the product is exact in float64)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _kernel_terms(q, mask):
+    """(scale, scale log2(e), base-2 key biases (BH, T)) in fp32."""
+    scale = torch.tensor(A.kernel_scale(q.shape[-1]), dtype=torch.float32)
+    bias2 = (mask.float() - 1.0) * 1e9 * torch.tensor(LOG2E)
+    return scale, scale * torch.tensor(LOG2E), bias2
+
+
+def _kernel_fwd(q, k, v, mask):
+    BH, T, D = q.shape
+    _, scale2, bias2 = _kernel_terms(q, mask)
+    s2 = _fma(q.float() @ k.float().transpose(1, 2), scale2, bias2[:, None, :])
+    m = torch.full((BH, T), -np.inf)
+    l = torch.zeros(BH, T)
+    for k0 in range(0, T, 128):                       # pass 1
+        st = s2[..., k0:k0 + 128]
+        m_new = torch.maximum(m, st.amax(-1))
+        l = l * torch.exp2(m - m_new) + torch.exp2(st - m_new[..., None]).sum(-1)
+        m = m_new
+    acc = torch.zeros(BH, T, D)
+    for k0 in range(0, T, 64):                        # pass 2
+        p = torch.exp2(s2[..., k0:k0 + 64] - m[..., None]).to(torch.bfloat16)
+        acc = acc + p.float() @ v[:, k0:k0 + 64].float()
+    lc = l.clamp_min(1e-30)
+    return acc / lc[..., None], m * torch.tensor(LN2) + torch.log(lc)
+
+
+def _kernel_bwd(q, k, v, mask, out, lse, dout):
+    BH, T, D = q.shape
+    bf = torch.bfloat16
+    scale, scale2, bias2 = _kernel_terms(q, mask)
+    delta = (dout * out).sum(-1)                      # the prologue, fp32
+    do_b = dout.to(bf).float()
+    lse2 = lse * torch.tensor(LOG2E)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    dq, dk, dv = (torch.zeros(BH, T, D) for _ in range(3))
+    tiles = range(0, T, 64)
+    for k0 in tiles:                                  # role 0: a key tile
+        K, V, b = kf[:, k0:k0 + 64], vf[:, k0:k0 + 64], bias2[:, k0:k0 + 64, None]
+        for q0 in tiles:
+            Q, Do = qf[:, q0:q0 + 64], do_b[:, q0:q0 + 64]
+            p = torch.exp2(_fma(K @ Q.transpose(1, 2), scale2, b) - lse2[:, None, q0:q0 + 64])
+            ds = p * (V @ Do.transpose(1, 2) - delta[:, None, q0:q0 + 64]) * scale
+            dv[:, k0:k0 + 64] += p.to(bf).float() @ Do
+            dk[:, k0:k0 + 64] += ds.to(bf).float() @ Q
+    for q0 in tiles:                                  # role 1: a query tile
+        Q, Do = qf[:, q0:q0 + 64], do_b[:, q0:q0 + 64]
+        for k0 in tiles:
+            K, V = kf[:, k0:k0 + 64], vf[:, k0:k0 + 64]
+            p = torch.exp2(_fma(Q @ K.transpose(1, 2), scale2, bias2[:, None, k0:k0 + 64])
+                           - lse2[:, q0:q0 + 64, None])
+            ds = p * (Do @ V.transpose(1, 2) - delta[:, q0:q0 + 64, None]) * scale
+            dq[:, q0:q0 + 64] += ds.to(bf).float() @ K
+    return dq.to(bf), dk.to(bf), dv.to(bf)
+
+
+@pytest.fixture(scope="module", params=[(77, 128), (77, 72)], ids=["T77-D128", "T77-D72"])
+def ragged(request):
+    T, D = request.param
+    rng = np.random.RandomState(3)
+    q, k, v = (torch.from_numpy(rng.randn(3, T, D).astype(np.float32) * s).to(torch.bfloat16)
+               for s in (0.5, 0.5, 1.0))
+    mask = torch.ones(3, T)
+    mask[1, T // 3:] = 0.0          # padded keys
+    mask[2] = 0.0                   # no valid key
+    dout = torch.from_numpy(rng.randn(3, T, D).astype(np.float32))
+    return q, k, v, mask, dout
+
+
+def test_kernel_forward_decomposition(ragged):
+    q, k, v, mask, _ = ragged
+    out, lse = _kernel_fwd(q, k, v, mask)
+    ref, ref_lse = A.flash_attention_fwd_plain(q, k, v, mask)
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    assert (out - ref).abs().max() < 3e-2
+    assert (lse - ref_lse).abs().max() < 3e-2
+    # the row without a valid key averages v
+    assert (out[2] - v[2].float().mean(0)).abs().max() < 3e-2
+
+
+def test_kernel_backward_decomposition(ragged):
+    q, k, v, mask, dout = ragged
+    out, lse = A.flash_attention_fwd_plain(q, k, v, mask)
+    got = _kernel_bwd(q, k, v, mask, out, lse, dout)
+    ref = A.flash_attention_bwd_plain(q, k, v, mask, out, lse, dout)
+    for name, g, r in zip("qkv", got, ref):
+        assert torch.isfinite(g.float()).all()
+        rel = (g.float() - r.float()).abs().max() / (r.float().abs().max() + 1e-9)
+        assert rel < 0.05, (f"d{name}", rel)
+
+
+def test_kernel_scale_is_cached_scale():
+    """The wrappers hand the kernels a scale computed once per head width;
+    it is the plain versions' fp32 1 / sqrt(D) for every width the gate
+    admits."""
+    for d in range(1, A.MAX_D + 1):
+        assert A.kernel_scale(d) == A._scale(d), d
+        assert A._scales[d] == A._scale(d)

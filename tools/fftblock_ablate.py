@@ -74,11 +74,8 @@ def build_all():
         with open(path, "w") as f:
             f.write(variant_source(src, edits, name))
         paths[name] = (f"fftblock_v{i}", path)
-    nvcc = _build._nvcc()
     with ThreadPoolExecutor(len(paths)) as pool:
-        return dict(zip(paths, pool.map(
-            lambda p: _build._compile(p[0], nvcc, _build.NVCC_FLAGS, [p[1]]),
-            paths.values())))
+        return dict(zip(paths, pool.map(lambda p: _build.build(*p), paths.values())))
 
 
 def load(path):
