@@ -93,16 +93,41 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
               PyTorch's default algorithms);
               ms per step, mel frames/s, peak memory; then one first-order
               ``validation_step``;
-8. report  -- one JSON line of kernels, then the card's name and power
+8. test    -- the few-shot test stage at the base configuration: a
+              checkpoint written by ``save_checkpoint`` and read by
+              ``SynthesisEngine.from_checkpoint`` synthesizes the 8
+              sentences bit for bit as its source, and a 4-speaker
+              checkpoint loads into 8 rows with the surgery report; then
+              ``Trainer.test`` on the preprocess phase's corpus (its own
+              stats.json), 2 tasks of 5 support and 1 query utterance, each
+              100 first-order steps (dropout on, flash in the inner loop)
+              with query evaluations and snapshots at [5, 10, 20, 50, 100]
+              (fused blocks), a teacher-forced recon wav and a synth wav per
+              saving step: exactly 1000 flash forward, 600 flash backward
+              and 130 fused launches per task, finite rows, moved
+              snapshots, the CSVs and non-empty int16 wavs; again with
+              ``test_task_batch`` 2 at saving steps [5, 10]
+              (``test_adapt_batched``: stacked shapes, finite rows); a
+              first-order support gradient through the flash kernels
+              against their plain versions (bf16, and fp32 under
+              deterministic algorithms); two snapshot evaluations back to
+              back through the fused kernel against its plain version;
+              ``adapt_speaker`` (100 steps) then ``synthesize``; s per task,
+              ms per inner step and per evaluation, the adapt + synthesis
+              real-time factor, peak memory, the snapshot mode and the
+              flash kernels' share of an inner step's device time;
+9. report  -- one JSON line of kernels, then the card's name and power
               limit, then the result line.
 
 It exits with an error and prints no result where no CUDA device is
 available, or where the ``metatts_torch`` package is not beside it.
 """
 
+import functools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1152,9 +1177,11 @@ def phase_preprocess():
               + ", ".join(f"{k} {v:.4f}" for k, v in zip(losses._fields, vals)))
         if not all(math.isfinite(v) for v in vals):
             raise AssertionError(f"non-finite losses {vals}")
-    finally:
+    except BaseException:
         shutil.rmtree(root, ignore_errors=True)
-    return launches
+        raise
+    # the corpus stays for the test phase; main() removes it
+    return launches, (root, cfg, stats)
 
 
 # ---------------------------------------------------------------- train
@@ -1200,6 +1227,20 @@ def top_gaps(a, b, n=4):
     gaps = sorted(((float((a[k] - b[k]).double().norm()), float(b[k].double().norm()), k)
                    for k in b if b[k] is not None), reverse=True)[:n]
     return ", ".join(f"{k} {d:.3g} of {r:.3g}" for d, r, k in gaps)
+
+
+def through_flash(plain, fn):
+    """fn() with the flash wrappers (plain=False) or with their plain
+    versions swapped in (plain=True)."""
+    from metatts_torch.ops import attention as A
+    kernels = (A.flash_attention_fwd, A.flash_attention_bwd)
+    if plain:
+        A.flash_attention_fwd = A.flash_attention_fwd_plain
+        A.flash_attention_bwd = A.flash_attention_bwd_plain
+    try:
+        return fn()
+    finally:
+        A.flash_attention_fwd, A.flash_attention_bwd = kernels
 
 
 def profile_step(system, sup, qry):
@@ -1254,16 +1295,7 @@ def phase_train():
     # gradients through the kernels against the same computation through
     # the plain versions: same weights, batch and dropout seed
     seed = 1234
-    kernels = (A.flash_attention_fwd, A.flash_attention_bwd)
-
-    def through(plain, fn):
-        if plain:
-            A.flash_attention_fwd = A.flash_attention_fwd_plain
-            A.flash_attention_bwd = A.flash_attention_bwd_plain
-        try:
-            return fn()
-        finally:
-            A.flash_attention_fwd, A.flash_attention_bwd = kernels
+    through = through_flash
 
     def query_grad(sys_):      # one training forward + backward of the query set
         params = sys_.params
@@ -1396,11 +1428,335 @@ def phase_train():
     return launches
 
 
+# ---------------------------------------------------------------- test
+
+TEST_TASKS = 2                         # full 100-step tasks through Trainer.test
+# the flash kernels' function names in csrc/flash_attention.cu
+FLASH_KERNELS = ("fwd_bf16", "bwd_prep_bf16", "bwd_bf16", "bwd_delta", "fwd_f32",
+                 "bwd_dq_f32", "bwd_dkdv_f32")
+TEST_BATCHED_SAVING = [5, 10]          # the batched run's saving steps (a depth cut)
+EVAL_TOL = 2e-2                        # the serve phase's kernel-vs-plain bound
+
+
+def _wavs(folder):
+    """name -> samples of every wav in ``folder``."""
+    from scipy.io import wavfile
+    return {f: wavfile.read(os.path.join(folder, f))[1]
+            for f in sorted(os.listdir(folder)) if f.endswith(".wav")}
+
+
+def _check_task_files(result, task, steps, n_queries):
+    """The task's CSV (the JAX package's columns, one row per saving step)
+    and its recon + per-step synth wavs (non-empty int16)."""
+    import csv
+    import numpy as np
+    from metatts_torch.train.saver import CSV_COLUMNS
+    with open(os.path.join(result, "csv", "Testing", "step_last", f"{task}.csv")) as f:
+        rows = list(csv.reader(f))
+    if rows[0] != ["ft_step"] + CSV_COLUMNS[1:] or [r[0] for r in rows[1:]] != \
+            [str(s) for s in steps]:
+        raise AssertionError(f"{task}: CSV {rows}")
+    wavs = _wavs(os.path.join(result, "audio", "Testing", "step_last", task))
+    synth = [f for f in wavs if ".synth." in f]
+    recon = [f for f in wavs if f.endswith(".recon.wav")]
+    if (len(recon), len(synth)) != (n_queries, n_queries * len(steps)) or not all(
+            w.dtype == np.int16 and w.size > 0 for w in wavs.values()):
+        raise AssertionError(f"{task}: wavs {[(f, w.dtype, w.size) for f, w in wavs.items()]}")
+    return len(wavs)
+
+
+def phase_test(corpus):
+    """The test stage at the base configuration on the preprocess phase's
+    corpus; see the module docstring."""
+    import copy
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from metatts_torch import config as C
+    from metatts_torch.algorithms.adapt import episode_speaker_args
+    from metatts_torch.algorithms.base import episode
+    from metatts_torch.algorithms.meta import MetaSystem
+    from metatts_torch.data.collate import collate_episode
+    from metatts_torch.data.datamodule import EpisodeDataModule
+    from metatts_torch.models import transformer
+    from metatts_torch.models.vocoder import Vocoder
+    from metatts_torch.ops import attention as A
+    from metatts_torch.ops.fftblock import fused_fft_block, fused_fft_block_plain
+    from metatts_torch.serve import SynthesisEngine
+    from metatts_torch.train.checkpoint import load_checkpoint, save_checkpoint
+    from metatts_torch.train.loop import Trainer
+
+    root, cfg, stats = corpus
+    pcfg0, mcfg, acfg = C.base_configs()
+    # the datamodule's val sampler (unused here) draws training tasks of 5 +
+    # 5 utterances, more than a speaker of the corpus has: cut its queries
+    acfg["adapt"]["train"]["queries"] = PP_UTTERANCES - acfg["adapt"]["train"]["shots"]
+    tcfg = copy.deepcopy(C.TRAIN_DEFAULTS)
+    test_cfg = acfg["adapt"]["test"]
+    steps = [0] + test_cfg["saving_steps"]
+    out_dir = os.path.join(root, "test_stage")
+    n_layers = mcfg["transformer"]["encoder_layer"] + mcfg["transformer"]["decoder_layer"]
+    n_dec = mcfg["transformer"]["decoder_layer"]
+    card = card_line()
+    vocoder = Vocoder(mcfg, n_mels=80, device="cuda")
+
+    def system_for(pcfg, acfg_, n_speakers, seed, stats_=None):
+        sys_ = MetaSystem(pcfg, mcfg, tcfg, acfg_, stats_, n_speakers=n_speakers,
+                          seed=seed, device="cuda")
+        with torch.no_grad():   # random init predicts ~0 frames, as in _engine
+            sys_.model.variance_adaptor.duration_predictor.linear_layer.bias.fill_(2.0)
+        return sys_
+
+    # checkpoint round trip: save, then SynthesisEngine.from_checkpoint
+    src = system_for(pcfg0, acfg, 8, 0)
+    path = os.path.join(out_dir, "ckpt", "seed0.msgpack")
+    save_checkpoint(path, src.model, 0)
+    eng = SynthesisEngine(src.model, pcfg0, mcfg, acfg, vocoder=vocoder, device="cuda")
+    loaded = SynthesisEngine.from_checkpoint(path, pcfg0, mcfg, acfg, n_speakers=8,
+                                             device="cuda")
+    speakers = list(range(len(SENTENCES)))
+    a = eng.synthesize(SENTENCES, speakers=speakers, mel_cap=1000)
+    b = loaded.synthesize(SENTENCES, speakers=speakers, mel_cap=1000)
+    if not all(np.array_equal(wa, wb) and np.array_equal(ma, mb)
+               for (wa, ma), (wb, mb) in zip(a, b)):
+        raise AssertionError("the engine from the checkpoint does not synthesize the "
+                             "source engine's wavs bit for bit")
+    small = system_for(pcfg0, acfg, 4, 1)
+    save_checkpoint(os.path.join(out_dir, "ckpt", "4rows.msgpack"), small.model, 3)
+    big = system_for(pcfg0, acfg, 8, 0).model
+    init_rows = big.speaker_emb.model.weight.detach().clone()
+    step, report = load_checkpoint(os.path.join(out_dir, "ckpt", "4rows.msgpack"), big)
+    table = big.speaker_emb.model.weight.detach()
+    want = "resized /speaker_emb/table: (4, 256) -> (8, 256) (copied 4 rows)"
+    if not (step == 3 and report == [want]
+            and torch.equal(table[:4], small.model.speaker_emb.model.weight.detach())
+            and torch.equal(table[4:], init_rows[4:])):
+        raise AssertionError(f"checkpoint surgery: step {step}, report {report}")
+    print(f"[test] checkpoint: save_checkpoint -> SynthesisEngine.from_checkpoint, "
+          f"{len(SENTENCES)} sentences synthesized bit for bit as the source engine; "
+          f"a 4-speaker checkpoint into 8 rows: {report[0]!r}")
+    del src, eng, loaded, small, big
+
+    # the test stage through Trainer.test: TEST_TASKS tasks of 100 steps
+    with open(os.path.join(cfg["path"]["preprocessed_path"], "speakers.json")) as f:
+        n_speakers = len(json.load(f))
+    system = system_for(cfg, acfg, n_speakers, 0, stats)
+    dm = EpisodeDataModule([cfg], tcfg, acfg, log_dir=os.path.join(out_dir, "log"))
+    dm.setup()
+    first, last = [], []
+    tasks_of = system.test_adapt_tasks
+
+    def recording(*args, **kw):
+        for item in tasks_of(*args, **kw):
+            first.append(item[2][0][1])
+            last.append(item[2][-1][1])
+            yield item
+    system.test_adapt_tasks = recording
+    trainer = Trainer(system, dm, tcfg, output_dir=out_dir, exp_name="seq",
+                      vocoder=vocoder)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path, counted
+    A.flash_attention_fwd.launches = A.flash_attention_bwd.launches = 0
+    fused_fft_block.launches = 0
+    t0 = time.perf_counter()
+    results = trainer.test(max_tasks=TEST_TASKS, tasks_per_label=1, task_batch=1)
+    torch.cuda.synchronize()
+    task_s = (time.perf_counter() - t0) / TEST_TASKS
+    launches = (A.flash_attention_fwd.launches, A.flash_attention_bwd.launches,
+                fused_fft_block.launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    mode = system.snapshot_mode
+    system.test_adapt_tasks = tasks_of
+    n_steps = test_cfg["steps"]
+    want = (TEST_TASKS * n_steps * n_layers, TEST_TASKS * n_steps * n_dec,
+            TEST_TASKS * (2 * len(steps) + 1) * n_layers)
+    if launches != want:
+        raise AssertionError(f"Trainer.test launched {launches} flash forward, flash "
+                             f"backward and fused kernels, not {want}")
+    if sorted(results) != [f"test_{i:03d}" for i in range(TEST_TASKS)]:
+        raise AssertionError(f"tasks {sorted(results)}")
+    modules = system.adaptor.modules
+    for tid, rows in results.items():
+        vals = [float(v) for _, lv in rows for v in lv]
+        if [ft for ft, _ in rows] != steps or not all(math.isfinite(v) for v in vals):
+            raise AssertionError(f"{tid}: rows {rows}")
+    for f, l in zip(first, last):
+        moved = [k for k in f if not torch.equal(f[k], l[k])]
+        if not moved or any(k.split(".")[0] not in modules for k in moved):
+            raise AssertionError(f"the step-{n_steps} snapshot moved {moved}")
+    result = os.path.join(out_dir, "result", "seq")
+    n_wavs = sum(_check_task_files(result, tid, steps, test_cfg["queries"])
+                 for tid in results)
+    print(f"[test] Trainer.test, base config, {TEST_TASKS} tasks ({test_cfg['shots']}-shot / "
+          f"{test_cfg['queries']}-query from the preprocess corpus), {n_steps} first-order "
+          f"steps each, saving steps {test_cfg['saving_steps']}: {task_s:.2f} s per task "
+          f"(adaptation, {len(steps)} evaluations, recon + {len(steps)} syntheses, files); "
+          f"launches {launches[0]} "
+          f"flash forward ({launches[0] // (TEST_TASKS * n_steps)} per inner step), "
+          f"{launches[1]} flash backward ({launches[1] // (TEST_TASKS * n_steps)} per inner "
+          f"step: the decoder's; the encoder is frozen and precedes the speaker embedding), "
+          f"{launches[2]} fused ({launches[2] // TEST_TASKS} per task); {n_wavs} wavs, "
+          f"CSV rows at {steps}; total loss "
+          + ", ".join(f"{float(r[0][1].total):.2f} -> {float(r[-1][1].total):.2f}"
+                      for r in results.values())
+          + f"; peak memory {peak:.2f} GiB; snapshots kept on the {mode} ({card})")
+
+    # again with test_task_batch 2: test_adapt_batched over stacked episodes
+    acfg_b = copy.deepcopy(acfg)
+    acfg_b["adapt"]["test"]["saving_steps"] = TEST_BATCHED_SAVING
+    system_b = system_for(cfg, acfg_b, n_speakers, 0, stats)
+    batched, shapes = system_b.test_adapt_batched, []
+
+    def record_batched(*args, **kw):
+        rows_E, snaps_E = batched(*args, **kw)
+        shapes.append(([tuple(v.shape) for _, lv in rows_E for v in lv],
+                       {k: tuple(v.shape) for k, v in snaps_E[-1][1].items()}))
+        return rows_E, snaps_E
+    system_b.test_adapt_batched = record_batched
+    res_b = Trainer(system_b, dm, dict(tcfg, test_task_batch=2), output_dir=out_dir,
+                    exp_name="batched", vocoder=vocoder).test(max_tasks=2, tasks_per_label=1)
+    params = system_b.params
+    if not (len(shapes) == 1 and set(shapes[0][0]) == {(2,)} and shapes[0][1] == {
+            k: (2,) + tuple(v.shape) for k, v in params.items()}):
+        raise AssertionError(f"test_adapt_batched shapes {shapes}")
+    for tid, rows in res_b.items():
+        if [ft for ft, _ in rows] != [0] + TEST_BATCHED_SAVING or not all(
+                math.isfinite(float(v)) for _, lv in rows for v in lv):
+            raise AssertionError(f"batched {tid}: rows {rows}")
+        _check_task_files(os.path.join(out_dir, "result", "batched"), tid,
+                          [0] + TEST_BATCHED_SAVING, test_cfg["queries"])
+    print(f"[test] Trainer.test with test_task_batch 2 (saving steps "
+          f"{TEST_BATCHED_SAVING}): one test_adapt_batched call, losses {shapes[0][0][0]} "
+          f"a field, snapshot tensors (2, ...); every episode's rows finite")
+    del system_b
+
+    # the first task's episode, for the checks and timings below
+    sup_s, qry_s = next(iter(dm.test_episodes(1)))[1]
+    sup_b, qry_b, _, _ = collate_episode([sup_s], [qry_s])
+    sup, qry = episode(sup_b, 0).to("cuda"), episode(qry_b, 0).to("cuda")
+    lr, seed = test_cfg["lr"], 4321
+
+    # a first-order support gradient through the kernels against the plain
+    # versions (the adapted modules only), bf16 and fp32
+    def fo_grad(sys_):
+        params = {k: v.detach().requires_grad_(k.split(".")[0] in modules)
+                  for k, v in sys_.params.items()}
+        names = [k for k, v in params.items() if v.requires_grad]
+        total, _ = sys_._supervised_loss(params, sup, seed, True)
+        return dict(zip(names, torch.autograd.grad(total, [params[k] for k in names],
+                                                   allow_unused=True)))
+    f0, b0 = A.flash_attention_fwd.launches, A.flash_attention_bwd.launches
+    g_k = through_flash(False, lambda: fo_grad(system))
+    step_launches = (A.flash_attention_fwd.launches - f0, A.flash_attention_bwd.launches - b0)
+    g_p = through_flash(True, lambda: fo_grad(system))
+    system32 = MetaSystem(cfg, dict(mcfg, compute_dtype="float32",
+                                    activation_dtype="float32",
+                                    attention_scores_dtype="float32"),
+                          tcfg, acfg, stats, n_speakers=n_speakers, seed=0, device="cuda")
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        g32_k = through_flash(False, lambda: fo_grad(system32))
+        g32_p = through_flash(True, lambda: fo_grad(system32))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    del system32
+    gap, gap32 = rel_l2(g_k, g_p), rel_l2(g32_k, g32_p)
+    print(f"[test] first-order support gradient (adapted modules), kernels vs plain "
+          f"versions: bf16 rel L2 {gap:.3e} (tolerance {GRAD_TOL:g}), fp32 under "
+          f"deterministic algorithms {gap32:.3e} (tolerance {GRAD_TOL_F32:g}); "
+          f"{step_launches[0]} flash forward and {step_launches[1]} backward launches")
+    print(f"[test]   largest bf16 gaps: {top_gaps(g_k, g_p)}")
+    if not (gap < GRAD_TOL and gap32 < GRAD_TOL_F32 and step_launches == (n_layers, n_dec)
+            and all(torch.isfinite(g).all() for g in g_k.values() if g is not None)):
+        raise AssertionError("the first-order gradient through the kernels disagrees "
+                             "with the plain versions")
+
+    # two snapshot evaluations back to back through the kernel, against the
+    # same evaluations through the plain version (the fused packs follow)
+    qry_c = qry._replace(speaker_args=episode_speaker_args(sup.speaker_args,
+                                                           qry.speaker_args))
+
+    @torch.no_grad()
+    def evaluate(params):
+        return system.adaptor.forward(params, qry_c, train=False, average_spk_emb=True,
+                                      fused_infer=True).postnet_mel
+    p0 = system._start_params()
+    p5 = system._adapt_chunk(p0, sup, 5, lr, seed)
+    k0, k5 = evaluate(p0), evaluate(p5)
+    transformer.fused_fft_block = fused_fft_block_plain
+    try:
+        r0, r5 = evaluate(p0), evaluate(p5)
+    finally:
+        transformer.fused_fft_block = fused_fft_block
+    rels = [((k - r).abs().max() / r.abs().max()).item() for k, r in ((k0, r0), (k5, r5))]
+    print(f"[test] snapshot evaluations at steps 0 and 5, back to back, kernel vs plain: "
+          f"postnet mel rel {rels[0]:.3e} / {rels[1]:.3e} (tolerance {EVAL_TOL:g}); the two "
+          f"snapshots' outputs differ by {(k5 - k0).abs().max().item():.3e}")
+    if not (max(rels) < EVAL_TOL and not torch.equal(k0, k5)
+            and torch.isfinite(k5).all()):
+        raise AssertionError("a snapshot evaluation through the kernel disagrees with "
+                             "the plain version")
+
+    # timings: an inner step, a snapshot evaluation, adapt_speaker(100) +
+    # synthesize, and the flash kernels' share of one profiled inner step
+    system._adapt_chunk(p0, sup, 1, lr, seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    system._adapt_chunk(p0, sup, 10, lr, seed)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / 10
+    t0 = time.perf_counter()
+    for _ in range(5):
+        float(system._eval_query(p5, sup, qry, True).total)
+    eval_ms = 1e3 * (time.perf_counter() - t0) / 5
+    base = SynthesisEngine(system.model, cfg, mcfg, acfg, vocoder=vocoder, device="cuda")
+    texts = [s["text"] for s in qry_s]
+    spk = [s["speaker"] for s in qry_s]
+    before = base.synthesize(texts, speakers=spk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    adapted = base.adapt_speaker(sup)
+    after = adapted.synthesize(texts, speakers=spk)
+    rtf_s = time.perf_counter() - t0
+    audio_s = sum(len(w) for w, _ in after) / base.sr
+    if not (all(np.isfinite(m).all() and m.size for _, m in after) and any(
+            m.shape != mb.shape or not np.array_equal(m, mb)
+            for (_, m), (_, mb) in zip(after, before))):
+        raise AssertionError("adapt_speaker's engine synthesizes nothing new")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        system._adapt_chunk(p0, sup, 1, lr, seed)
+        torch.cuda.synchronize()
+        prof_ms = 1e3 * (time.perf_counter() - t0)
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    attr = "self_device_time_total" if events and hasattr(events[0], "self_device_time_total") \
+        else "self_cuda_time_total"
+    busy = sum(getattr(e, attr) for e in events) / 1e3
+    flash = [e for e in events if any(n in e.key for n in FLASH_KERNELS)]
+    flash_ms = sum(getattr(e, attr) for e in flash) / 1e3
+    share = (f"{flash_ms:.3f} of {busy:.2f} ms of device time "
+             f"({100 * flash_ms / busy:.1f}%, {sum(e.count for e in flash)} flash kernels "
+             f"in {sum(e.count for e in events)}), the host's clock {prof_ms:.2f} ms"
+             if busy and flash else "not measured (no flash kernel in the trace)")
+    print(f"[test] timings ({card}): {task_s:.2f} s per {n_steps}-step task; {step_ms:.2f} ms per "
+          f"inner step ({test_cfg['shots']} support utterances, mel bucket "
+          f"{sup.mels.shape[1]}); {eval_ms:.2f} ms per snapshot evaluation (fused); "
+          f"adapt_speaker({n_steps}) + synthesize {rtf_s:.2f} s for {audio_s:.2f} s of "
+          f"audio, real-time factor {rtf_s / audio_s:.4f}; peak memory {peak:.2f} GiB; "
+          f"snapshot mode '{mode}' (auto); flash kernels in one profiled inner step {share}")
+    for e in sorted(events, key=lambda e: -getattr(e, attr))[:6]:
+        print(f"[test]   {getattr(e, attr) / 1e3:8.3f} ms {e.count:5d}x  {e.key[:90]}")
+    return launches
+
+
 def with_time(phase):
     """One phase, with its wall time."""
     t0 = time.perf_counter()
     out = phase()
-    print(f"[time] {phase.__name__[len('phase_'):]}: "
+    print(f"[time] {getattr(phase, 'func', phase).__name__[len('phase_'):]}: "
           f"{time.perf_counter() - t0:.1f} s")
     return out
 
@@ -1431,9 +1787,13 @@ def main():
     kern = with_time(phase_kernel)
     flash = with_time(phase_flash)
     mel = with_time(phase_mel)
-    mel_launches = with_time(phase_preprocess)
-    launches = with_time(phase_serve)
-    flash_launches = with_time(phase_train)
+    mel_launches, corpus = with_time(phase_preprocess)
+    try:
+        launches = with_time(phase_serve)
+        flash_launches = with_time(phase_train)
+        test_launches = with_time(functools.partial(phase_test, corpus))
+    finally:
+        shutil.rmtree(corpus[0], ignore_errors=True)
 
     k = kern[(8, 1000)]
     entry = {
@@ -1445,6 +1805,7 @@ def main():
                              "bound_ms", "bound_by", "device_ms", "ms_bf16",
                              "composite_ms", "stages_ms")},
         "library_ms": None,
+        "test_launches": test_launches[2],
         "shape": "B=8 T=1000 D=256 H=2 F=1024 K=9 fp32 in/out",
         **{f"{n}_{B}x{T}": kern[(B, T)][n] for B, T in ((1, 1000), (8, 160), (8, 64))
            for n in ("ms", "device_ms", "bound_ms")},
@@ -1458,7 +1819,8 @@ def main():
             "name": name, "route": "cuda",
             "source": "metatts_torch/csrc/flash_attention.cu",
             "replaces": f"metatts_tpu/ops/pallas/attention.py:{line}",
-            "launches": flash_launches[i], **main_shape[way],
+            "launches": flash_launches[i], "test_launches": test_launches[i],
+            **main_shape[way],
             "shape": "BH=10 T=896 D=128 bf16",
             **{f"{n}_t128": text_shape[way][n]
                for n in ("ms", "device_ms", "bound_ms", "library_ms")},

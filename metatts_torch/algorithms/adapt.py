@@ -109,12 +109,18 @@ class Adaptor:
     # ---------------------------------------------------------- forward
 
     def forward(self, params, batch, *, train=False, seed=None,
-                attention_impl=None, average_spk_emb=False):
+                attention_impl=None, average_spk_emb=False,
+                teacher_forced=None, max_mel_len=None, fused_infer=None):
         """The model's forward on ``params`` (name -> tensor); BatchNorm
-        running statistics stay as they are."""
+        running statistics stay as they are.  ``teacher_forced``,
+        ``max_mel_len`` and ``fused_infer`` pass through to
+        ``FastSpeech2.forward`` (the JAX package passes the last as a model
+        config override, ``_fused_infer``)."""
         return functional_call(self.model, params, (batch,), dict(
             train=train, seed=seed, attention_impl=attention_impl,
-            update_bn_state=False, average_spk_emb=average_spk_emb))
+            update_bn_state=False, average_spk_emb=average_spk_emb,
+            teacher_forced=teacher_forced, max_mel_len=max_mel_len,
+            fused_infer=fused_infer))
 
     def loss(self, batch, output):
         return fastspeech2_loss(batch, output, self.pcfg)
@@ -163,6 +169,17 @@ class Adaptor:
             adapted = {k: v if gi is None else v - lr * gi
                        for (k, v), gi in zip(adapted.items(), g)}
         return merge(adapted, frozen)
+
+    def adapt_first_order(self, params, sup, *, steps, lr, train, seed=None):
+        """First-order ``adapt`` of detached copies of ``params`` (only the
+        adapted modules' tensors take gradients, so no backward runs
+        through the frozen ones); returns detached tensors."""
+        params = {k: v.detach().requires_grad_(k.split(".")[0] in self.modules)
+                  for k, v in params.items()}
+        with torch.enable_grad():
+            out = self.adapt(params, sup, steps=steps, lr=lr, first_order=True,
+                             train=train, seed=seed)
+        return {k: v.detach() for k, v in out.items()}
 
     # -------------------------------------------------------- meta step
 

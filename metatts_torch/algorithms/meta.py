@@ -8,15 +8,9 @@ mean over the episodes, and Adam with the Noam schedule applies it.
 
 import torch
 
-from ..data.collate import Batch
 from ..models import nn as L
 from ..models.loss import LossValues
-from .base import System
-
-
-def episode(batch, e):
-    """Episode ``e`` of a batch stacked on a leading episode axis."""
-    return Batch(*(None if t is None else t[e] for t in batch))
+from .base import System, episode
 
 
 class MetaSystem(System):

@@ -1,4 +1,4 @@
-"""JAX parameter trees (nested dicts/lists of numpy arrays) -> state dicts
+"""JAX parameter trees (nested dicts/lists of numpy arrays) <-> state dicts
 of the port's modules.
 
 The FastSpeech2 mapping is the reference checkpoint mapping of
@@ -6,7 +6,8 @@ The FastSpeech2 mapping is the reference checkpoint mapping of
 reference's torch names, linear weights are transposed to torch's
 (out, in), conv kernels keep their (out, in, k) layout.  Loading uses
 ``load_state_dict(strict=True)``, so a tensor the mapping misses raises
-instead of staying at its init.
+instead of staying at its init.  ``jax_trees_from_fs2`` runs the same
+mapping backwards, with the JAX init's key order.
 """
 
 import numpy as np
@@ -48,12 +49,14 @@ def _vp_paths(name):
     return m
 
 
-def build_mapping(params):
-    """torch name -> ("params" | "state", path list, transpose?)."""
+def build_mapping(n_encoder, n_decoder, n_postnet, speaker_table):
+    """torch name -> ("params" | "state", path list, transpose?), for a
+    FastSpeech2 with these layer counts and, if ``speaker_table``, a
+    speaker table."""
     m = {"encoder.src_word_emb.weight":
          ("params", ["encoder", "src_word_emb", "table"], False)}
-    for stack in ("encoder", "decoder"):
-        for i in range(len(params[stack]["layers"])):
+    for stack, n in (("encoder", n_encoder), ("decoder", n_decoder)):
+        for i in range(n):
             for k, (path, t) in _mha_paths(stack, i).items():
                 m[k] = ("params", [stack] + path, t)
     for name in ("duration_predictor", "pitch_predictor", "energy_predictor"):
@@ -66,7 +69,7 @@ def build_mapping(params):
             "params", ["variance_adaptor", f"{name}_bins"], False)
     m["mel_linear.weight"] = ("params", ["mel_linear", "w"], True)
     m["mel_linear.bias"] = ("params", ["mel_linear", "b"], False)
-    for i in range(len(params["postnet"]["convs"])):
+    for i in range(n_postnet):
         pre = f"postnet.convolutions.{i}"
         m[f"{pre}.0.conv.weight"] = ("params", ["postnet", "convs", i, "conv", "w"], False)
         m[f"{pre}.0.conv.bias"] = ("params", ["postnet", "convs", i, "conv", "b"], False)
@@ -74,13 +77,20 @@ def build_mapping(params):
         m[f"{pre}.1.bias"] = ("params", ["postnet", "convs", i, "bn", "bias"], False)
         m[f"{pre}.1.running_mean"] = ("state", ["postnet", "convs", i, "mean"], False)
         m[f"{pre}.1.running_var"] = ("state", ["postnet", "convs", i, "var"], False)
-    if "speaker_emb" in params:
-        if "table" not in params["speaker_emb"]:
-            raise NotImplementedError(
-                "GE2E speaker-encoder parameters are not ported yet: "
-                "ROADMAP Queue 1 item 11")
+    if speaker_table:
         m["speaker_emb.model.weight"] = ("params", ["speaker_emb", "table"], False)
     return m
+
+
+def _jax_mapping(params):
+    """``build_mapping`` for a JAX FastSpeech2 ``params`` tree."""
+    if "speaker_emb" in params and "table" not in params["speaker_emb"]:
+        raise NotImplementedError(
+            "GE2E speaker-encoder parameters are not ported yet: "
+            "ROADMAP Queue 1 item 11")
+    return build_mapping(len(params["encoder"]["layers"]),
+                         len(params["decoder"]["layers"]),
+                         len(params["postnet"]["convs"]), "speaker_emb" in params)
 
 
 def _get(tree, path):
@@ -98,7 +108,7 @@ def fs2_state_dict_from_jax(params, state):
     """FastSpeech2 ``params`` / ``state`` trees -> the port's state dict."""
     trees = {"params": params, "state": state}
     return {name: _tensor(_get(trees[which], path), t)
-            for name, (which, path, t) in build_mapping(params).items()}
+            for name, (which, path, t) in _jax_mapping(params).items()}
 
 
 def fft_block_state_dict_from_jax(p):
@@ -125,6 +135,49 @@ def tree_state_dict(tree, prefix=""):
 def load_fs2_from_jax(model, params, state):
     model.load_state_dict(fs2_state_dict_from_jax(params, state), strict=True)
     return model
+
+
+# The key order of the JAX package's ``fastspeech2_init`` trees (a key's
+# place among its siblings), so that trees built here walk in the order
+# the JAX package's do, e.g. in a checkpoint's surgery report.
+_JAX_KEY_ORDER = {k: i for i, k in enumerate((
+    "encoder", "variance_adaptor", "decoder", "mel_linear", "postnet",
+    "speaker_emb", "src_word_emb", "layers", "attn", "ffn", "w_q", "w_k",
+    "w_v", "fc", "w1", "w2", "ln", "duration_predictor", "pitch_predictor",
+    "energy_predictor", "pitch_embedding", "energy_embedding", "pitch_bins",
+    "energy_bins", "conv1", "ln1", "conv2", "ln2", "linear", "convs", "conv",
+    "bn", "w", "b", "scale", "bias", "table", "mean", "var"))}
+
+
+def _put(tree, path, value):
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def _finish(tree):
+    """Build-time dicts -> the JAX layout: integer keys become lists, other
+    keys take the JAX init's order."""
+    if not isinstance(tree, dict):
+        return tree
+    if all(isinstance(k, int) for k in tree):
+        return [_finish(tree[i]) for i in range(len(tree))]
+    return {k: _finish(tree[k]) for k in sorted(tree, key=_JAX_KEY_ORDER.__getitem__)}
+
+
+def jax_trees_from_fs2(model):
+    """A port ``FastSpeech2`` -> the JAX package's (params, state) trees of
+    numpy arrays, with linear weights transposed back to (in, out)."""
+    sd = model.state_dict()
+    mapping = build_mapping(len(model.encoder.layer_stack),
+                            len(model.decoder.layer_stack),
+                            len(model.postnet.convolutions),
+                            model.speaker_emb is not None)
+    trees = {"params": {}, "state": {}}
+    for name, (which, path, t) in mapping.items():
+        v = sd[name].detach().cpu().numpy()
+        _put(trees[which], path, np.array(v.T if t else v, order="C"))
+    return _finish(trees["params"]), _finish(trees["state"])
 
 
 def load_vocoder_from_jax(vocoder, params):

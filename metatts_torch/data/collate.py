@@ -39,10 +39,12 @@ class CollateMeta:
         self.speakers = speakers
 
 
-def collate_batch(samples, max_seq_len=1000, with_mels=True):
-    """List of dataset sample dicts -> (Batch, CollateMeta)."""
+def collate_batch(samples, max_seq_len=1000, with_mels=True,
+                  fixed_text_len=None, fixed_mel_len=None):
+    """List of dataset sample dicts -> (Batch, CollateMeta).  The text and
+    mel lengths are their buckets unless fixed by the caller."""
     src_lens = np.array([len(s["text"]) for s in samples], np.int32)
-    L = bucket_length(int(src_lens.max()), TEXT_BUCKET)
+    L = fixed_text_len or bucket_length(int(src_lens.max()), TEXT_BUCKET)
     texts = pad_1d([s["text"] for s in samples], L).astype(np.int32)
 
     speaker_ids = np.array([s["speaker"] for s in samples], np.int32)
@@ -59,7 +61,8 @@ def collate_batch(samples, max_seq_len=1000, with_mels=True):
                      src_lens=t(src_lens)), meta
 
     mel_lens = np.array([s["mel"].shape[0] for s in samples], np.int32)
-    T = bucket_length(int(mel_lens.max()), MEL_BUCKET, max_seq_len)
+    T = fixed_mel_len or bucket_length(int(mel_lens.max()), MEL_BUCKET,
+                                       max_seq_len)
     mel_lens = np.minimum(mel_lens, T)
     mels = pad_2d([s["mel"] for s in samples], T).astype(np.float32)
     pitches = pad_1d([s["pitch"] for s in samples],
@@ -96,3 +99,25 @@ def _clamp_durations(durations, mel_lens):
             out[i, j] = mel_lens[i] - prev
             out[i, j + 1:] = 0
     return out
+
+
+def collate_episode(sup_samples_list, qry_samples_list, max_seq_len=1000):
+    """Lists of per-episode sample lists -> (sup Batch[E, ...], qry
+    Batch[E, ...], sup metas, qry metas).  Every episode takes the text and
+    mel buckets of the longest utterance of all of them."""
+    all_samples = [s for ep in sup_samples_list for s in ep] + \
+                  [s for ep in qry_samples_list for s in ep]
+    L = bucket_length(max(len(s["text"]) for s in all_samples), TEXT_BUCKET)
+    T = bucket_length(max(s["mel"].shape[0] for s in all_samples),
+                      MEL_BUCKET, max_seq_len)
+
+    def stack(eps):
+        pairs = [collate_batch(ep, max_seq_len, fixed_text_len=L, fixed_mel_len=T)
+                 for ep in eps]
+        batch = Batch(*(None if f[0] is None else torch.stack(f)
+                        for f in zip(*(b for b, _ in pairs))))
+        return batch, [m for _, m in pairs]
+
+    sup, sup_meta = stack(sup_samples_list)
+    qry, qry_meta = stack(qry_samples_list)
+    return sup, qry, sup_meta, qry_meta

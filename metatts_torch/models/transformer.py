@@ -143,7 +143,7 @@ class FFTBlock(nn.Module):
         super().__init__()
         self.slf_attn = MultiHeadAttention(d_model, n_head, d_model // n_head)
         self.pos_ffn = PositionwiseFeedForward(d_model, d_inner, kernel_sizes)
-        self._packed = (None, None)
+        self._packed = ((), (), None)
 
     def forward(self, x, valid, n_head, prec, *, attn_impl="einsum",
                 drop_rate=0.0, train=False, seed=None):
@@ -155,15 +155,26 @@ class FFTBlock(nn.Module):
         x = self.pos_ffn(x, prec, drop_rate=drop_rate, train=train, seed=r2)
         return torch.where(keep, x, torch.zeros((), dtype=x.dtype, device=x.device))
 
+    def __getstate__(self):
+        # a copy (deepcopy, pickle) packs again at its first fused call: the
+        # pack holds this block's tensors and the kernel's C pointers to them
+        return {**self.__dict__, "_packed": ((), (), None)}
+
     def fused_params(self):
-        """``pack_block_params`` of this block, repacked only after a
-        parameter changed (in place or by moving the module)."""
-        key = tuple((p.data_ptr(), p._version) for p in self.parameters())
-        if self._packed[0] != key:
+        """``pack_block_params`` of this block, repacked unless every
+        parameter is the very tensor of the last pack at the same version.
+        The pack holds its source tensors, so a freed tensor's address
+        reused by another (a parameter dict swapped in by
+        ``functional_call``, then freed) cannot pass for it."""
+        sources = tuple(self.parameters())
+        versions = tuple(p._version for p in sources)
+        held, held_versions, pack = self._packed
+        if (len(held) != len(sources) or versions != held_versions
+                or any(a is not b for a, b in zip(held, sources))):
             with torch.no_grad():
-                self._packed = (key, pack_block_params(self.slf_attn,
-                                                       self.pos_ffn))
-        return self._packed[1]
+                pack = pack_block_params(self.slf_attn, self.pos_ffn)
+            self._packed = (sources, versions, pack)
+        return pack
 
 
 def _use_fused_infer(fused_infer, training, d_model, n_head):

@@ -6,9 +6,16 @@ synthesis forward runs as one fused kernel (``ops/fftblock.py``) where the
 width allows it: a CUDA kernel on the card, its plain PyTorch version on
 the CPU.
 
+Few-shot serving: ``adapt_speaker`` runs the test-time first-order
+adaptation on a support batch and returns a new engine on a copy of the
+model that holds the adapted weights.  ``from_checkpoint`` builds an engine
+from a checkpoint of either package.
+
 The engine runs on the card unless it is given ``device="cpu"``; without a
 card it raises rather than falling back to the CPU.
 """
+
+import copy
 
 import numpy as np
 import torch
@@ -89,13 +96,35 @@ class SynthesisEngine:
     # ---------------------------------------------------- few-shot serving
 
     def adapt_speaker(self, sup_batch, steps=None, lr=None):
-        raise NotImplementedError(
-            "adapt_speaker is the test-time adaptation of the next slice: "
-            "ROADMAP Queue 1 item 7")
+        """First-order SGD on the support Batch (``steps`` and ``lr``
+        default to the test stage's), without dropout and with BatchNorm's
+        running statistics -> a new engine on a copy of the model with the
+        adapted weights (its own fused-weight packs), sharing the vocoder."""
+        from .algorithms.adapt import Adaptor
+        test_cfg = self.acfg["adapt"]["test"]
+        steps = steps or test_cfg["steps"]
+        lr = lr or test_cfg["lr"]
+        adapted = Adaptor(self.model, self.pcfg, self.mcfg, self.acfg).adapt_first_order(
+            dict(self.model.named_parameters()), sup_batch.to(self.device),
+            steps=steps, lr=lr, train=False)
+        model = copy.deepcopy(self.model)
+        model.load_state_dict({**model.state_dict(), **adapted}, strict=True)
+        return SynthesisEngine(model, self.pcfg, self.mcfg, self.acfg,
+                               vocoder=self.vocoder, device=self.device)
 
     @classmethod
     def from_checkpoint(cls, ckpt_path, preprocess_cfg, model_cfg,
-                        algorithm_cfg, stats=None, n_speakers=8):
-        raise NotImplementedError(
-            "reading a JAX msgpack checkpoint is not ported yet: "
-            "ROADMAP Queue 1 item 6")
+                        algorithm_cfg, stats=None, n_speakers=8, device="cuda"):
+        """An engine on a checkpoint of either package: the model is
+        initialised from seed 0, then loaded under the checkpoint surgery
+        rules, whose report lines are printed."""
+        from .algorithms.base import DEFAULT_STATS
+        from .train.checkpoint import load_checkpoint
+        device = resolve_device(device)
+        model = FastSpeech2(preprocess_cfg, model_cfg, algorithm_cfg,
+                            stats or DEFAULT_STATS, n_speakers,
+                            generator=torch.Generator().manual_seed(0))
+        _, report = load_checkpoint(ckpt_path, model)
+        for r in report:
+            print(f"[ckpt surgery] {r}")
+        return cls(model, preprocess_cfg, model_cfg, algorithm_cfg, device=device)

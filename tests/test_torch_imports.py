@@ -1,5 +1,6 @@
-"""Port: ``metatts_torch`` and ``chip_smoke.py`` import with JAX blocked, and
-nothing of the port names the JAX package or imports JAX."""
+"""Port: ``metatts_torch``, ``chip_smoke.py`` and ``bench_torch.py`` import
+with JAX, flax, msgpack and optax blocked, and nothing of the port names the
+JAX package or imports JAX."""
 
 import ast
 import os
@@ -31,15 +32,19 @@ def _modules():
     return sorted(mods)
 
 
+BLOCKED = ("jax", "flax", "msgpack", "optax")
+
+
 def test_port_and_smoke_import_without_jax():
     code = (
         "import sys\n"
-        "sys.modules['jax'] = None\n"          # any `import jax` now raises
+        f"for b in {BLOCKED!r}:\n"
+        "    sys.modules[b] = None\n"          # any `import jax` now raises
         "import importlib\n"
-        f"for m in {_modules() + ['chip_smoke']!r}:\n"
+        f"for m in {_modules() + ['chip_smoke', 'bench_torch']!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m, mod in sys.modules.items() if mod is not None "
-        "and m.split('.')[0] in ('jax', 'metatts_tpu', 'yaml'))\n"
+        f"and m.split('.')[0] in {BLOCKED + ('metatts_tpu', 'yaml')!r})\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -56,8 +61,8 @@ def test_port_file_names_no_jax(path):
     assert not re.search(r"metatts_tpu|\bjax\b", text), path
 
 
-def test_smoke_imports_nothing_of_jax():
-    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+def _imported(path):
+    with open(path) as f:
         tree = ast.parse(f.read())
     names = []
     for node in ast.walk(tree):
@@ -65,8 +70,26 @@ def test_smoke_imports_nothing_of_jax():
             names += [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom) and node.module:
             names.append(node.module)
+    return names
+
+
+def test_smoke_imports_nothing_of_jax():
+    names = _imported(os.path.join(ROOT, "chip_smoke.py"))
     assert names and not [n for n in names
-                          if n.split(".")[0] in ("jax", "metatts_tpu")]
+                          if n.split(".")[0] in BLOCKED + ("metatts_tpu",)]
+
+
+def test_bench_imports_nothing_of_jax():
+    names = _imported(os.path.join(ROOT, "bench_torch.py"))
+    assert names and not [n for n in names
+                          if n.split(".")[0] in BLOCKED + ("metatts_tpu",)]
+
+
+@pytest.mark.parametrize("path", sorted(os.path.relpath(p, ROOT) for p in _port_files()
+                                        if p.endswith(".py")))
+def test_port_imports_no_flax_msgpack_optax(path):
+    assert not [n for n in _imported(os.path.join(ROOT, path))
+                if n.split(".")[0] in BLOCKED + ("metatts_tpu",)], path
 
 
 @pytest.mark.parametrize("module", [
@@ -109,3 +132,14 @@ def test_scipy_only_in_preprocess():
                   if isinstance(n, ast.ImportFrom) and n.module]
         if any(n.split(".")[0] == "scipy" for n in names):
             assert rel.startswith("preprocess" + os.sep), rel
+
+
+@pytest.mark.parametrize("module", [
+    "metatts_torch.__main__", "metatts_torch.train.checkpoint",
+    "metatts_torch.train.loop", "metatts_torch.train.saver",
+    "metatts_torch.train.synth_utils", "metatts_torch.train.logging",
+    "metatts_torch.data.episodes", "metatts_torch.data.datamodule"])
+def test_test_stage_modules_are_checked(module):
+    """The test stage's modules are among those imported with JAX, flax,
+    msgpack and optax blocked above."""
+    assert module in _modules()
