@@ -17,12 +17,15 @@
 * the test stage: ``System.test_adapt`` (100 steps, saving steps [5, 10,
   20, 50, 100], snapshot evaluations) per task, and
   ``test_adapt_batched`` over 8 copies of the task, which runs them one
-  after another on the card.
+  after another on the card;
+* the baseline step (``BaselineSystem.train_step``) at the reference
+  recipe's batch: 80 utterances of 128 symbols and 896 mel frames, 256
+  speakers; 3 warm-up and 10 timed steps (``baseline_step_ms_B80``, and
+  ``baseline_mel_frames_per_sec``: the batch's mel frames per step time).
 
 Every time is a host clock around work that ends in
 ``torch.cuda.synchronize()``.  It prints one JSON line with ``bench.py``'s
-keys; those of modules the port lacks (the baseline system) and the TPU's
-compiler and baselines are null.  The card's name and power limit are in
+keys; those of the TPU's compiler and baselines are null.  The card's name and power limit are in
 the line.  It exits with an error where no CUDA device is available.
 """
 
@@ -36,6 +39,7 @@ import numpy as np
 
 SHOTS, QUERIES, SRC_LEN, MEL_LEN, INNER_STEPS, EPISODES = 5, 5, 128, 896, 5, 1
 WARMUP, ITERS = 2, 10
+BASELINE_B, BASELINE_WARMUP = 80, 3
 N_SPEAKERS = 256
 BATCHED = 8           # tasks of test_adapt_batched
 TEST_REPS = 2         # timed sequential tasks, after one untimed
@@ -157,6 +161,19 @@ def main():
     _, bat_wall_s = wall(lambda: system.test_adapt_batched(stack(sup1), stack(qry1)))
     mode_batched = system.snapshot_mode
 
+    # the baseline step at batch 80
+    from metatts_torch.algorithms.baseline import BaselineSystem
+    from metatts_torch.data.collate import Batch
+    bsys = BaselineSystem(pcfg, mcfg, tcfg, dict(acfg, type="baseline"),
+                          n_speakers=N_SPEAKERS, device="cuda")
+    bbatch = Batch(*(torch.from_numpy(f) for f in _batch(
+        rng, BASELINE_B, SRC_LEN, MEL_LEN, 80, N_SPEAKERS))).to("cuda")
+    for _ in range(BASELINE_WARMUP):
+        bsys.train_step(bbatch)
+    _, b_dt = wall(lambda: [bsys.train_step(bbatch) for _ in range(ITERS)])
+    b_dt /= ITERS
+    b_frames = int(bbatch.mel_lens.sum())
+
     card = card_line()
     print(json.dumps({
         "metric": "train_mel_frames_per_sec_per_chip",
@@ -177,8 +194,8 @@ def main():
         "adapt100_synth_rtf": round(adapt_synth_s / max(audio_s, 1e-6), 4),
         "adapt100_synth_s": round(adapt_synth_s, 3),
         "synth_forward_ms_chained": round(synth_s / 10 * 1e3, 2),
-        "baseline_step_ms_B80": None,
-        "baseline_mel_frames_per_sec": None,
+        "baseline_step_ms_B80": round(b_dt * 1e3, 2),
+        "baseline_mel_frames_per_sec": round(b_frames / b_dt, 1),
         "gradacc8_effective_step_ms": round(acc_dt * 1e3, 2),
         "gradacc8_frames_per_sec": round(frames_per_step * 8 / acc_dt, 1),
         "test_stage_tasks_per_sec_seq": round(1.0 / seq_task_s, 3),

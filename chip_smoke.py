@@ -34,8 +34,9 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
               each stage's device ms at (8, 1000);
 3. flash   -- the flash-attention forward and backward kernels (wgmma +
               TMA in bf16) against their plain versions at the training
-              slice's shapes, bf16 (BH=10, D=128, T=896 and T=128) and a
-              ragged fp32 case (T=77), then in bf16 at T=1000 (the serving
+              slice's shapes, bf16 (BH=10, D=128, T=896 and T=128), a
+              ragged fp32 case (T=77) and the baseline step's width (BH=160,
+              T=896 and T=128, bf16), then in bf16 at T=1000 (the serving
               cap), T=77 and D=72, with rows fully valid, partly padded and
               fully padded, at the TPU kernel's own test tolerances and, in
               bf16, at tighter limits set from the card's readings; two
@@ -116,7 +117,30 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
               ms per inner step and per evaluation, the adapt + synthesis
               real-time factor, peak memory, the snapshot mode and the
               flash kernels' share of an inner step's device time;
-9. report  -- one JSON line of kernels, then the card's name and power
+9. fit     -- training runs at the base configuration on the preprocess
+              phase's corpus (its own stats.json): ``Trainer.fit`` of the
+              baseline system (config/algorithm/base_emb_vad.yaml,
+              config/train/base.yaml: batch 80, drawn with replacement from
+              the corpus's 32 utterances) for 6 steps, with validation (one
+              frozen task a speaker), in-loop synthesis through MelGAN and
+              checkpoints every 3: exactly 10 + 10 flash launches a step, 60
+              + 30 a validation task and the total of the run (the
+              validation and training samples included), no fused or mel
+              launch; finite losses in train.csv, every BatchNorm buffer
+              moved, the checkpoints, CSVs and wavs under the JAX package's
+              names; a second ``Trainer`` resumed from ``step_3.ckpt`` to
+              step 6 starts from the first run's Adam moments, counts,
+              step and weights bit for bit; the gradient of one batch-80
+              step through the flash kernels against their plain versions
+              (bf16, and fp32 under deterministic algorithms); the step's
+              mean and p95 over 5 synchronised steps, mel frames/s, the
+              run's ``[profile]`` (e2e steps/s with validation, synthesis
+              and checkpoints), peak memory, and one profiled step's
+              device time, idle share, largest kernels and flash share;
+              then ``Trainer.fit`` of the meta system (meta_emb_vad, 2
+              episodes a step, 2 steps, validation at step 2) with its
+              launches a step and a validation task;
+10. report -- one JSON line of kernels, then the card's name and power
               limit, then the result line.
 
 It exits with an error and prints no result where no CUDA device is
@@ -643,7 +667,9 @@ def breakdown(eng, texts, speakers, reps=3):
 # ---------------------------------------------------------------- flash
 
 FLASH_SHAPES = ((10, 896, 128, "bfloat16"), (10, 128, 128, "bfloat16"),
-                (4, 77, 128, "float32"))
+                (4, 77, 128, "float32"),
+                # the baseline step's width: B=80 utterances x 2 heads
+                (160, 896, 128, "bfloat16"), (160, 128, 128, "bfloat16"))
 # held against the plain versions but not timed: the serving cap (no
 # multiple of the 64-row tiles), a short ragged T, and a head width that is
 # a multiple of 8 and not of 16 (TMA zero-fills the tiles' columns past D)
@@ -1243,20 +1269,27 @@ def through_flash(plain, fn):
         A.flash_attention_fwd, A.flash_attention_bwd = kernels
 
 
-def profile_step(system, sup, qry):
-    """Device time of one meta step by kernel name (torch.profiler), and
-    the step's wall time; the share of the wall time the card was idle."""
+def device_profile(fn):
+    """fn() under torch.profiler: (its wall ms, synchronised, the CUDA
+    events of ``key_averages()``, each event's self device-time attribute)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        system.train_step(sup, qry)
+        fn()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     attr = "self_device_time_total" if events and hasattr(events[0], "self_device_time_total") \
         else "self_cuda_time_total"
+    return wall, events, attr
+
+
+def profile_step(system, sup, qry):
+    """Device time of one meta step by kernel name (torch.profiler), and
+    the step's wall time; the share of the wall time the card was idle."""
+    wall, events, attr = device_profile(lambda: system.train_step(sup, qry))
     busy = sum(getattr(e, attr) for e in events) / 1e3
     if busy == 0.0:
         print("[train] profile: no device time in the trace (not measured)")
@@ -1477,7 +1510,7 @@ def phase_test(corpus):
     from metatts_torch.algorithms.base import episode
     from metatts_torch.algorithms.meta import MetaSystem
     from metatts_torch.data.collate import collate_episode
-    from metatts_torch.data.datamodule import EpisodeDataModule
+    from metatts_torch.data.datamodule import BaselineDataModule
     from metatts_torch.models import transformer
     from metatts_torch.models.vocoder import Vocoder
     from metatts_torch.ops import attention as A
@@ -1525,10 +1558,10 @@ def phase_test(corpus):
     save_checkpoint(os.path.join(out_dir, "ckpt", "4rows.msgpack"), small.model, 3)
     big = system_for(pcfg0, acfg, 8, 0).model
     init_rows = big.speaker_emb.model.weight.detach().clone()
-    step, report = load_checkpoint(os.path.join(out_dir, "ckpt", "4rows.msgpack"), big)
+    opt, step, report = load_checkpoint(os.path.join(out_dir, "ckpt", "4rows.msgpack"), big)
     table = big.speaker_emb.model.weight.detach()
     want = "resized /speaker_emb/table: (4, 256) -> (8, 256) (copied 4 rows)"
-    if not (step == 3 and report == [want]
+    if not (step == 3 and report == [want] and opt is None
             and torch.equal(table[:4], small.model.speaker_emb.model.weight.detach())
             and torch.equal(table[4:], init_rows[4:])):
         raise AssertionError(f"checkpoint surgery: step {step}, report {report}")
@@ -1541,7 +1574,7 @@ def phase_test(corpus):
     with open(os.path.join(cfg["path"]["preprocessed_path"], "speakers.json")) as f:
         n_speakers = len(json.load(f))
     system = system_for(cfg, acfg, n_speakers, 0, stats)
-    dm = EpisodeDataModule([cfg], tcfg, acfg, log_dir=os.path.join(out_dir, "log"))
+    dm = BaselineDataModule([cfg], tcfg, acfg, log_dir=os.path.join(out_dir, "log"))
     dm.setup()
     first, last = [], []
     tasks_of = system.test_adapt_tasks
@@ -1752,6 +1785,316 @@ def phase_test(corpus):
     return launches
 
 
+# ---------------------------------------------------------------- fit
+
+FIT_STEPS, FIT_EVERY = 6, 3      # total_step; val, synth and save cadence (a depth cut)
+META_FIT_STEPS, META_FIT_EPISODES = 2, 2   # the meta run (a depth cut: the recipe's 8)
+FIT_TIMED = 5                    # baseline steps timed after the run
+
+
+def _flash_counts():
+    from metatts_torch.ops import attention as A
+    return A.flash_attention_fwd.launches, A.flash_attention_bwd.launches
+
+
+def _counted(fn, log):
+    """fn, appending to ``log`` the flash launches of each call."""
+    def run(*args, **kw):
+        f0, b0 = _flash_counts()
+        out = fn(*args, **kw)
+        f1, b1 = _flash_counts()
+        log.append((f1 - f0, b1 - b0))
+        return out
+    return run
+
+
+def _opt_state(system):
+    """A copy of the optimizer's moments and count, the step counter and
+    the weights."""
+    opt = system.optimizer
+    return ({n: t.clone() for n, t in opt.mu.items()}, {n: t.clone() for n, t in opt.nu.items()},
+            opt.count, system.global_step, {n: p.detach().clone() for n, p in system.params.items()})
+
+
+def _same_state(a, b):
+    """Two ``_opt_state`` copies equal bit for bit."""
+    import torch
+    return a[2:4] == b[2:4] and all(
+        a[i].keys() == b[i].keys() and all(torch.equal(a[i][k], b[i][k]) for k in a[i])
+        for i in (0, 1, 4))
+
+
+def _events(log_dir):
+    """name -> last value of the metrics in a run's events.jsonl."""
+    out = {}
+    with open(os.path.join(log_dir, "events.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            if rec["kind"] == "metrics":
+                out.update(rec["metrics"])
+    return out
+
+
+def phase_fit(corpus):
+    """Training runs at the base configuration on the preprocess phase's
+    corpus; see the module docstring."""
+    import copy
+    import csv
+    import numpy as np
+    import torch
+    from metatts_torch import config as C
+    from metatts_torch.algorithms import get_system
+    from metatts_torch.data.datamodule import get_datamodule
+    from metatts_torch.models.vocoder import Vocoder
+    from metatts_torch.ops import attention as A
+    from metatts_torch.ops import melspec
+    from metatts_torch.ops.fftblock import fused_fft_block
+    from metatts_torch.train.loop import Trainer
+    from metatts_torch.utils.profiling import StepTimer
+
+    root, cfg, stats = corpus
+    _, mcfg, _ = C.base_configs()
+    base = copy.deepcopy(C.ALGORITHM_DEFAULTS)     # config/algorithm/base_emb_vad.yaml
+    meta = C.deep_merge(C.ALGORITHM_DEFAULTS, C.META_EMB_VAD)
+    for acfg in (base, meta):
+        # the val sampler draws tasks of 5 + 5 utterances, more than a
+        # speaker of the corpus has: cut its queries, as the test phase does
+        acfg["adapt"]["train"]["queries"] = PP_UTTERANCES - acfg["adapt"]["train"]["shots"]
+    meta["adapt"]["train"]["meta_batch_size"] = META_FIT_EPISODES
+    tcfg = copy.deepcopy(C.TRAIN_DEFAULTS)         # config/train/base.yaml: batch 80
+    tcfg["step"].update(total_step=FIT_STEPS, log_step=1, val_step=FIT_EVERY,
+                        synth_step=FIT_EVERY, save_step=FIT_EVERY)
+    B = tcfg["optimizer"]["batch_size"]
+    out_dir = os.path.join(root, "fit")
+    with open(os.path.join(cfg["path"]["preprocessed_path"], "speakers.json")) as f:
+        n_speakers = len(json.load(f))
+    n_layers = mcfg["transformer"]["encoder_layer"] + mcfg["transformer"]["decoder_layer"]
+    n_dec = mcfg["transformer"]["decoder_layer"]
+    inner = base["adapt"]["train"]["steps"]
+    card = card_line()
+    vocoder = Vocoder(mcfg, n_mels=80, device="cuda")
+
+    def build(acfg, tcfg_, exp, seed=0):
+        system = get_system(acfg["type"])(cfg, mcfg, tcfg_, acfg, stats,
+                                          n_speakers=n_speakers, seed=seed, device="cuda")
+        with torch.no_grad():   # random init predicts ~0 frames, as in _engine
+            system.model.variance_adaptor.duration_predictor.linear_layer.bias.fill_(2.0)
+        dm = get_datamodule(acfg["type"])([cfg], tcfg_, acfg,
+                                          log_dir=os.path.join(out_dir, "log", exp))
+        dm.setup()
+        # one frozen val task a speaker (the JAX package's default is 4; a depth cut)
+        dm.val_sampler.prefetch_tasks(1, dm.log_dir, "val")
+        return system, dm, Trainer(system, dm, tcfg_, output_dir=out_dir, exp_name=exp,
+                                   vocoder=vocoder)
+
+    # the baseline run: Trainer.fit at batch 80, every step's and every
+    # validation task's flash launches counted, the optimizer kept at step 3
+    system, dm, trainer = build(base, tcfg, "baseline")
+    n_tasks = len(dm.val_sampler.labels)
+    bn = {k: v.clone() for k, v in system.model.state_dict().items() if "running" in k}
+    step_log, val_log, saved = [], [], []
+    own_step, own_val = system.train_step, system.validation_step
+    train_step = _counted(own_step, step_log)
+
+    def step_and_keep(batch):
+        losses = train_step(batch)
+        if system.global_step == FIT_EVERY:
+            saved.append(_opt_state(system))
+        return losses
+    system.train_step = step_and_keep
+    system.validation_step = _counted(system.validation_step, val_log)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path, counted
+    A.flash_attention_fwd.launches = A.flash_attention_bwd.launches = 0
+    fused_fft_block.launches = melspec.fused_mel_spectrogram.launches = 0
+    t0 = time.perf_counter()
+    trainer.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = _flash_counts()
+    others = (fused_fft_block.launches, melspec.fused_mel_spectrogram.launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    system.train_step, system.validation_step = own_step, own_val
+
+    n_val = FIT_STEPS // FIT_EVERY
+    per_step, per_task = (n_layers, n_layers), ((inner + 1) * n_layers, inner * n_dec)
+    # each validation adds its first task's sample (the same adaptation and
+    # query forward), each synth step a teacher-forced and a free forward
+    want = (FIT_STEPS * n_layers + n_val * (n_tasks + 1) * per_task[0] + n_val * 2 * n_layers,
+            FIT_STEPS * n_layers + n_val * (n_tasks + 1) * per_task[1])
+    if not (step_log == [per_step] * FIT_STEPS and val_log == [per_task] * (n_val * n_tasks)
+            and launches == want and others == (0, 0)):
+        raise AssertionError(f"Trainer.fit launched flash (forward, backward) {step_log} per "
+                             f"step, {val_log} per val task, {launches} in all, fused and "
+                             f"mel {others}; want {per_step}, {per_task}, {want}, (0, 0)")
+    log_dir = os.path.join(out_dir, "log", "baseline")
+    with open(os.path.join(log_dir, "train.csv")) as f:
+        rows = list(csv.reader(f))[1:]
+    losses = [[float(v) for v in r[1:]] for r in rows]
+    if [int(r[0]) for r in rows] != list(range(1, FIT_STEPS + 1)) or not all(
+            math.isfinite(v) for r in losses for v in r):
+        raise AssertionError(f"train.csv rows {rows}")
+    moved = [k for k, v in bn.items() if not torch.equal(v, system.model.state_dict()[k])]
+    if len(moved) != len(bn):
+        raise AssertionError(f"the baseline steps moved {len(moved)} of {len(bn)} BatchNorm "
+                             f"buffers")
+    result = os.path.join(out_dir, "result", "baseline")
+    ckpts = sorted(os.listdir(os.path.join(out_dir, "ckpt", "baseline")))
+    want_ckpts = sorted(["last.ckpt"] + [f"step_{s}.ckpt"
+                                         for s in range(FIT_EVERY, FIT_STEPS + 1, FIT_EVERY)])
+    n_wavs = 0
+    for s in range(FIT_EVERY, FIT_STEPS + 1, FIT_EVERY):
+        for split, names in (("Validation", ("reconstructed", "synthesized")),
+                             ("Training", ("recon", "synth"))):
+            wavs = _wavs(os.path.join(result, "audio", split, "step_last", f"step_{s}"))
+            if sorted(wavs) != [f"sample.{n}.wav" for n in names] or not all(
+                    w.dtype == np.int16 and w.size > 0 for w in wavs.values()):
+                raise AssertionError(f"{split} step {s}: wavs {[(k, w.size) for k, w in wavs.items()]}")
+            n_wavs += len(wavs)
+    val_csvs = sorted(os.listdir(os.path.join(result, "csv", "Validation", "step_last")))
+    if ckpts != want_ckpts or val_csvs != [f"val_{i:03d}.csv" for i in range(n_tasks)]:
+        raise AssertionError(f"checkpoints {ckpts}, val CSVs {val_csvs}")
+    ev = _events(log_dir)
+    print(f"[fit] Trainer.fit, baseline (base_emb_vad), base config, batch {B} drawn with "
+          f"replacement from the corpus's {len(dm.train_set)} utterances, {FIT_STEPS} steps, "
+          f"val / synth / save every {FIT_EVERY} ({n_tasks} val tasks, one a speaker): "
+          f"{fit_s:.2f} s; flash launches {launches[0]} forward + {launches[1]} backward "
+          f"({per_step} a step, {per_task} a val task); total loss "
+          + ", ".join(f"{r[0]:.3f}" for r in losses)
+          + f"; fused and mel launches {others}; {len(moved)} BatchNorm buffers moved; {ckpts}, {n_wavs} wavs, "
+          f"{len(val_csvs)} val CSVs; the run's [profile]: step mean "
+          f"{ev['profile/final_mean_ms']:.1f} ms, p95 {ev['profile/final_p95_ms']:.1f} ms, "
+          f"e2e {ev['profile/e2e_steps_per_sec']:.3f} steps/s incl val/synth/ckpt; peak "
+          f"memory {peak:.2f} GiB ({card})")
+
+    # resume from step_3.ckpt: a second Trainer to step 6 (no validation)
+    tcfg_r = copy.deepcopy(tcfg)
+    tcfg_r["step"].update(val_step=10 * FIT_STEPS, synth_step=0)
+    resumed, _, trainer_r = build(base, tcfg_r, "resume", seed=1)
+    first, resumed_losses = [], []
+    step_r = resumed.train_step
+
+    def check_then_step(batch):
+        if not first:
+            first.append(_same_state(_opt_state(resumed), saved[0]))
+        out = step_r(batch)
+        resumed_losses.append(float(out.total))
+        return out
+    resumed.train_step = check_then_step
+    trainer_r.fit(resume_from=os.path.join(out_dir, "ckpt", "baseline",
+                                           f"step_{FIT_EVERY}.ckpt"))
+    if not (first == [True] and len(resumed_losses) == FIT_STEPS - FIT_EVERY
+            and all(math.isfinite(v) for v in resumed_losses)):
+        raise AssertionError(f"the resumed run: state equal to the saved one {first}, "
+                             f"losses {resumed_losses}")
+    print(f"[fit] resumed from step_{FIT_EVERY}.ckpt: Adam moments, counts, global_step "
+          f"and weights equal the run's at step {FIT_EVERY} bit for bit; total loss at steps "
+          f"{FIT_EVERY + 1}-{FIT_STEPS} " + ", ".join(f"{v:.3f}" for v in resumed_losses))
+    shutil.rmtree(os.path.join(out_dir, "ckpt"), ignore_errors=True)
+    del resumed, trainer_r, saved
+
+    # gradients of one batch-80 baseline step through the kernels against
+    # the plain versions: bf16, and fp32 under deterministic algorithms
+    batch = next(dm.train_batches(B))[0].to("cuda")
+    seed = 4321
+
+    def grad(sys_):
+        sys_.model.train()
+        params = sys_.params
+        total, _ = sys_._supervised_loss(params, batch, seed, True)
+        return dict(zip(params, torch.autograd.grad(total, list(params.values()),
+                                                    allow_unused=True)))
+    f0 = _flash_counts()
+    g_k = through_flash(False, lambda: grad(system))
+    grad_launches = tuple(b - a for a, b in zip(f0, _flash_counts()))
+    g_p = through_flash(True, lambda: grad(system))
+    system32 = get_system("baseline")(cfg, dict(mcfg, compute_dtype="float32",
+                                                activation_dtype="float32",
+                                                attention_scores_dtype="float32"),
+                                      tcfg, base, stats, n_speakers=n_speakers, seed=0,
+                                      device="cuda")
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        g32_k = through_flash(False, lambda: grad(system32))
+        g32_p = through_flash(True, lambda: grad(system32))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    del system32
+    gap, gap32 = rel_l2(g_k, g_p), rel_l2(g32_k, g32_p)
+    L_text, T_mel = batch.texts.shape[1], batch.mels.shape[1]
+    print(f"[fit] gradient of one baseline step (B={B}, L={L_text}, T={T_mel}; flash at "
+          f"BH={B * mcfg['transformer']['decoder_head']}), kernels vs plain versions: bf16 "
+          f"rel L2 {gap:.3e} (tolerance {GRAD_TOL:g}), fp32 under deterministic algorithms "
+          f"{gap32:.3e} (tolerance {GRAD_TOL_F32:g}); {grad_launches[0]} flash forward and "
+          f"{grad_launches[1]} backward launches")
+    print(f"[fit]   largest bf16 gaps: {top_gaps(g_k, g_p)}")
+    if not (gap < GRAD_TOL and gap32 < GRAD_TOL_F32 and grad_launches == per_step
+            and all(torch.isfinite(g).all() for g in g_k.values() if g is not None)):
+        raise AssertionError("the baseline gradient through the kernels disagrees with "
+                             "the plain versions")
+    del g_k, g_p, g32_k, g32_p
+
+    # the baseline step's time on one batch, then one profiled step
+    timer = StepTimer()
+    system.train_step(batch)
+    torch.cuda.synchronize()
+    for _ in range(FIT_TIMED):
+        with timer:
+            system.train_step(batch)
+            torch.cuda.synchronize()
+    st = timer.stats()
+    frames = int(batch.mel_lens.sum())
+    wall, events, attr = device_profile(lambda: system.train_step(batch))
+    busy = sum(getattr(e, attr) for e in events) / 1e3
+    flash = [e for e in events if any(n in e.key for n in FLASH_KERNELS)]
+    flash_ms = sum(getattr(e, attr) for e in flash) / 1e3
+    prof = (f"wall {wall:.1f} ms, device busy {busy:.1f} ms (kernel time summed), idle "
+            f"share {max(0.0, 1 - busy / wall):.3f}; {sum(e.count for e in events)} kernel "
+            f"launches; flash {flash_ms:.3f} ms ({100 * flash_ms / busy:.2f}%, "
+            f"{sum(e.count for e in flash)} kernels)"
+            if busy and flash else "not measured (no device time or no flash kernel in the "
+            "trace)")
+    print(f"[fit] BaselineSystem.train_step, B={B}, L={L_text}, T={T_mel} ({frames} mel "
+          f"frames): mean {st['mean_ms']:.2f} ms, p95 {st['p95_ms']:.2f} ms over "
+          f"{st['steps']} synchronised steps, {frames / st['mean_ms'] * 1e3:.1f} mel frames/s "
+          f"({card}); profile of one step: {prof}")
+    for e in sorted(events, key=lambda e: -getattr(e, attr))[:8]:
+        print(f"[fit]   {getattr(e, attr) / 1e3:9.2f} ms {e.count:6d}x  {e.key[:90]}")
+    del system, trainer, dm
+
+    # the meta run: Trainer.fit of the meta system, validation at its end
+    tcfg_m = copy.deepcopy(tcfg)
+    tcfg_m["step"].update(total_step=META_FIT_STEPS, val_step=META_FIT_STEPS,
+                          synth_step=META_FIT_STEPS, save_step=META_FIT_STEPS)
+    msys, mdm, mtrainer = build(meta, tcfg_m, "meta")
+    m_steps, m_vals = [], []
+    msys.train_step = _counted(msys.train_step, m_steps)
+    msys.validation_step = _counted(msys.validation_step, m_vals)
+    t0 = time.perf_counter()
+    mtrainer.fit()
+    torch.cuda.synchronize()
+    meta_s = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "log", "meta", "train.csv")) as f:
+        mrows = list(csv.reader(f))[1:]
+    n_mtasks = len(mdm.val_sampler.labels)
+    if not (m_steps == [(META_FIT_EPISODES * n_layers,) * 2] * META_FIT_STEPS
+            and m_vals == [per_task] * n_mtasks and len(mrows) == META_FIT_STEPS
+            and all(math.isfinite(float(v)) for r in mrows for v in r[1:])
+            and os.path.exists(os.path.join(out_dir, "ckpt", "meta",
+                                            f"step_{META_FIT_STEPS}.ckpt"))):
+        raise AssertionError(f"the meta run: launches {m_steps} a step, {m_vals} a val "
+                             f"task, train.csv {mrows}")
+    print(f"[fit] Trainer.fit, meta (meta_emb_vad), {META_FIT_EPISODES} episodes a step, "
+          f"{META_FIT_STEPS} steps, validation at step {META_FIT_STEPS} ({n_mtasks} tasks): "
+          f"{meta_s:.2f} s; flash {m_steps[0]} a step, {m_vals[0]} a val task; total loss "
+          + ", ".join(f"{float(r[1]):.3f}" for r in mrows))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return launches + others
+
+
 def with_time(phase):
     """One phase, with its wall time."""
     t0 = time.perf_counter()
@@ -1792,6 +2135,7 @@ def main():
         launches = with_time(phase_serve)
         flash_launches = with_time(phase_train)
         test_launches = with_time(functools.partial(phase_test, corpus))
+        fit_launches = with_time(functools.partial(phase_fit, corpus))
     finally:
         shutil.rmtree(corpus[0], ignore_errors=True)
 
@@ -1805,12 +2149,13 @@ def main():
                              "bound_ms", "bound_by", "device_ms", "ms_bf16",
                              "composite_ms", "stages_ms")},
         "library_ms": None,
-        "test_launches": test_launches[2],
+        "test_launches": test_launches[2], "fit_launches": fit_launches[2],
         "shape": "B=8 T=1000 D=256 H=2 F=1024 K=9 fp32 in/out",
         **{f"{n}_{B}x{T}": kern[(B, T)][n] for B, T in ((1, 1000), (8, 160), (8, 64))
            for n in ("ms", "device_ms", "bound_ms")},
     }
     main_shape, text_shape = flash[FLASH_SHAPES[0]], flash[FLASH_SHAPES[1]]
+    wide = {"bh160": flash[FLASH_SHAPES[3]], "bh160_t128": flash[FLASH_SHAPES[4]]}
     entries = [entry]
     for i, (name, line) in enumerate((("flash_attention_fwd", 95),
                                       ("flash_attention_bwd", 129))):
@@ -1820,16 +2165,19 @@ def main():
             "source": "metatts_torch/csrc/flash_attention.cu",
             "replaces": f"metatts_tpu/ops/pallas/attention.py:{line}",
             "launches": flash_launches[i], "test_launches": test_launches[i],
+            "fit_launches": fit_launches[i],
             **main_shape[way],
             "shape": "BH=10 T=896 D=128 bf16",
             **{f"{n}_t128": text_shape[way][n]
+               for n in ("ms", "device_ms", "bound_ms", "library_ms")},
+            **{f"{n}_{tag}": shape[way][n] for tag, shape in wide.items()
                for n in ("ms", "device_ms", "bound_ms", "library_ms")},
         })
     entries.append({
         "name": "fused_mel_spectrogram", "route": "cuda",
         "source": "metatts_torch/csrc/melspec.cu",
         "replaces": "metatts_tpu/ops/pallas/melspec.py:81",
-        "launches": mel_launches, **mel[MEL_SHAPES[0]],
+        "launches": mel_launches, "fit_launches": fit_launches[3], **mel[MEL_SHAPES[0]],
         "shape": "B=16 T=220500 n_fft=1024 hop=256 mels=80 fp32",
         **{k + "_b1": mel[MEL_SHAPES[1]][k]
            for k in ("ms", "plain_ms", "bound_ms", "library_ms", "device_ms")},

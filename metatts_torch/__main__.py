@@ -1,16 +1,20 @@
-"""The port's CLI for the test and predict stages (the root ``main.py``
-stays the JAX package's):
+"""The port's CLI (the root ``main.py`` stays the JAX package's):
 
-    python -m metatts_torch -s {test,predict}
+    python -m metatts_torch -s {train,test,predict}
                             -p <preprocess.yaml>... -m <model.yaml>
                             -t <train.yaml>... -a <algorithm.yaml>
                             [-e exp_name] [-c ckpt_path] [--device cuda|cpu]
 
+  train   -- ``Trainer.fit`` of the algorithm's system (baseline or meta):
+             validation, in-loop synthesis and checkpoints at the train
+             config's cadences; ``-c`` resumes from a checkpoint of either
+             package (weights, step and optimizer state)
   test    -- few-shot adaptation + synthesis over the frozen test tasks
   predict -- synthesize every line of a TextDataset ``--source`` file
 
-``-c`` loads a checkpoint of either package under the surgery rules.
-Training (``-s train``) waits for ROADMAP Queue 1 item 6.
+For test and predict, ``-c`` loads a checkpoint of either package under
+the surgery rules.  The iMAML system's training waits for ROADMAP Queue 1
+item 9; its test stage is the one every system shares.
 """
 
 import argparse
@@ -22,13 +26,13 @@ import torch
 from . import config as C
 
 
-def build(configs, log_dir=".", device="cuda"):
+def build(configs, log_dir=".", device="cuda", stage="train"):
     """(system, datamodule) of the configs, as the JAX ``main.build``: the
-    stats and speaker count come from the first corpus's preprocessed
-    files where they exist."""
+    system and datamodule of the algorithm's type, the stats and speaker
+    count from the first corpus's preprocessed files where they exist."""
+    from .algorithms import get_system
     from .algorithms.base import System
-    from .algorithms.meta import MetaSystem
-    from .data.datamodule import EpisodeDataModule
+    from .data.datamodule import get_datamodule
 
     preprocess_cfgs, model_cfg, train_cfg, algorithm_cfg = configs
     root = preprocess_cfgs[0]["path"]["preprocessed_path"]
@@ -41,11 +45,11 @@ def build(configs, log_dir=".", device="cuda"):
             n_speakers = max(len(json.load(f)), 1)
     spk_refer_wav = algorithm_cfg["adapt"]["speaker_emb"] in (
         "encoder", "dvec", "scratch_encoder")
-    dm = EpisodeDataModule(preprocess_cfgs, train_cfg, algorithm_cfg,
-                           log_dir=log_dir, spk_refer_wav=spk_refer_wav)
-    # the test stage is shared by every system; the baseline and iMAML
-    # training steps wait for ROADMAP Queue 1 items 8-9
-    cls = MetaSystem if algorithm_cfg["type"] == "meta" else System
+    kind = algorithm_cfg["type"]
+    dm = get_datamodule(kind)(preprocess_cfgs, train_cfg, algorithm_cfg,
+                              log_dir=log_dir, spk_refer_wav=spk_refer_wav)
+    # the test stage is every system's; only iMAML's training step is missing
+    cls = System if kind == "imaml" and stage != "train" else get_system(kind)
     system = cls(preprocess_cfgs, model_cfg, train_cfg, algorithm_cfg,
                  stats=stats, n_speakers=n_speakers, device=device)
     return system, dm
@@ -56,15 +60,11 @@ def main(args, configs):
     from .train.checkpoint import load_checkpoint
     from .train.loop import Trainer
 
-    if args.stage == "train":
-        raise NotImplementedError(
-            "training runs are not ported yet: ROADMAP Queue 1 item 6; "
-            "train with the JAX package's main.py")
     log_dir = os.path.join(args.output_dir, "log", args.exp_name)
     os.makedirs(log_dir, exist_ok=True)
-    system, dm = build(configs, log_dir=log_dir, device=args.device)
-    if args.ckpt_path:
-        _, report = load_checkpoint(args.ckpt_path, system.model)
+    system, dm = build(configs, log_dir=log_dir, device=args.device, stage=args.stage)
+    if args.ckpt_path and args.stage != "train":
+        _, _, report = load_checkpoint(args.ckpt_path, system.model)
         for r in report:
             print(f"[ckpt surgery] {r}")
     n_mels = configs[0][0]["preprocessing"]["mel"]["n_mel_channels"]
@@ -77,7 +77,10 @@ def main(args, configs):
                else Vocoder(configs[1], n_mels=n_mels, device=system.device))
     trainer = Trainer(system, dm, configs[2], output_dir=args.output_dir,
                       exp_name=args.exp_name, vocoder=vocoder)
-    trainer.test(max_tasks=args.max_tasks, tasks_per_label=args.tasks_per_label)
+    if args.stage == "train":
+        trainer.fit(resume_from=args.ckpt_path, max_steps=args.max_steps)
+    else:
+        trainer.test(max_tasks=args.max_tasks, tasks_per_label=args.tasks_per_label)
 
 
 @torch.no_grad()
@@ -130,6 +133,8 @@ def parse_args(argv=None):
     parser.add_argument("-e", "--exp_name", type=str, default="dev")
     parser.add_argument("-c", "--ckpt_path", type=str, default=None)
     parser.add_argument("--output_dir", type=str, default="output")
+    parser.add_argument("--max_steps", type=int, default=None,
+                        help="train to this step instead of step.total_step")
     parser.add_argument("--max_tasks", type=int, default=None)
     parser.add_argument("--tasks_per_label", type=int, default=None,
                         help="test tasks per speaker (default 16, as in the "
@@ -137,7 +142,7 @@ def parse_args(argv=None):
     parser.add_argument("--source", type=str, default=None,
                         help="text source file for the predict stage")
     parser.add_argument("--no_synth", action="store_true",
-                        help="test without the vocoder (CSV rows only)")
+                        help="train or test without the vocoder (no audio)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")
     return parser.parse_args(argv)

@@ -110,15 +110,17 @@ class Adaptor:
 
     def forward(self, params, batch, *, train=False, seed=None,
                 attention_impl=None, average_spk_emb=False,
-                teacher_forced=None, max_mel_len=None, fused_infer=None):
+                teacher_forced=None, max_mel_len=None, fused_infer=None,
+                update_bn_state=False):
         """The model's forward on ``params`` (name -> tensor); BatchNorm
-        running statistics stay as they are.  ``teacher_forced``,
-        ``max_mel_len`` and ``fused_infer`` pass through to
-        ``FastSpeech2.forward`` (the JAX package passes the last as a model
-        config override, ``_fused_infer``)."""
+        running statistics stay as they are unless ``update_bn_state``
+        (the baseline step keeps the JAX forward's new state).
+        ``teacher_forced``, ``max_mel_len`` and ``fused_infer`` pass through
+        to ``FastSpeech2.forward`` (the JAX package passes the last as a
+        model config override, ``_fused_infer``)."""
         return functional_call(self.model, params, (batch,), dict(
             train=train, seed=seed, attention_impl=attention_impl,
-            update_bn_state=False, average_spk_emb=average_spk_emb,
+            update_bn_state=update_bn_state, average_spk_emb=average_spk_emb,
             teacher_forced=teacher_forced, max_mel_len=max_mel_len,
             fused_infer=fused_infer))
 

@@ -83,10 +83,40 @@ class System:
         self.optimizer.step(self.params, grads)
         self.global_step += 1
 
-    def _supervised_loss(self, params, batch, seed, train):
-        out = self.adaptor.forward(params, batch, train=train, seed=seed)
+    def _supervised_loss(self, params, batch, seed, train, update_bn_state=False):
+        out = self.adaptor.forward(params, batch, train=train, seed=seed,
+                                   update_bn_state=update_bn_state)
         losses = self.adaptor.loss(batch, out)
         return losses.total, losses
+
+    # -------------------------------------------------------- validation
+
+    def _val_losses(self, sup, qry, seed):
+        task = self.acfg["adapt"]["train"]
+        losses, _ = self.adaptor.meta_learn(self.params, sup, qry, steps=task["steps"],
+                                            lr=task["lr"], train=False, seed=seed)
+        return LossValues(*(v.detach() for v in losses))
+
+    def validation_step(self, sup_batch, qry_batch):
+        """First-order adaptation on one episode's support set, evaluated
+        on its query set (reference ``base_adaptor.py:107``); every system
+        validates so, as the reference shares ``meta_learn``.  Returns
+        LossValues."""
+        self.model.eval()
+        return self._val_losses(sup_batch.to(self.device), qry_batch.to(self.device),
+                                self.next_rng())
+
+    def validation_step_batched(self, sup_stack, qry_stack):
+        """``validation_step`` over the E episodes of Batches stacked on a
+        leading episode axis, one after another; episode e draws from
+        ``split(next_rng(), E)[e]``, as the JAX package splits its key.
+        Returns LossValues with (E,) fields."""
+        self.model.eval()
+        E = sup_stack.texts.shape[0]
+        sup_stack, qry_stack = sup_stack.to(self.device), qry_stack.to(self.device)
+        runs = [self._val_losses(episode(sup_stack, e), episode(qry_stack, e), s)
+                for e, s in enumerate(L.split(self.next_rng(), E))]
+        return LossValues(*(torch.stack(v) for v in zip(*runs)))
 
     # --------------------------------------------------- test adaptation
 

@@ -53,12 +53,3 @@ class MetaSystem(System):
                                               self.next_rng())
         self.apply_updates(grads)
         return losses
-
-    def validation_step(self, sup_batch, qry_batch):
-        """First-order adaptation on one episode, evaluated on its query
-        (reference ``base_adaptor.py:107``).  Returns LossValues."""
-        self.model.eval()
-        losses = self._episode_loss(self.params, sup_batch.to(self.device),
-                                    qry_batch.to(self.device),
-                                    self.next_rng(), False)
-        return LossValues(*(v.detach() for v in losses))

@@ -165,19 +165,60 @@ def _finish(tree):
     return {k: _finish(tree[k]) for k in sorted(tree, key=_JAX_KEY_ORDER.__getitem__)}
 
 
+def _fs2_mapping(model):
+    return build_mapping(len(model.encoder.layer_stack),
+                         len(model.decoder.layer_stack),
+                         len(model.postnet.convolutions),
+                         model.speaker_emb is not None)
+
+
+def _trees(named, mapping):
+    trees = {"params": {}, "state": {}}
+    for name, (which, path, t) in mapping.items():
+        v = named[name].detach().cpu().numpy()
+        _put(trees[which], path, np.array(v.T if t else v, order="C"))
+    return _finish(trees["params"]), _finish(trees["state"])
+
+
 def jax_trees_from_fs2(model):
     """A port ``FastSpeech2`` -> the JAX package's (params, state) trees of
     numpy arrays, with linear weights transposed back to (in, out)."""
+    return _trees(model.state_dict(), _fs2_mapping(model))
+
+
+def jax_params_tree(model, named):
+    """``named`` (parameter name of ``model`` -> tensor of its shape: an Adam
+    moment, a gradient) -> a tree in the layout of the JAX ``params``.  The
+    pitch and energy bins, buffers here and parameters there, are zeros:
+    no gradient reaches them, so every moment of theirs is 0 in the JAX
+    package too."""
     sd = model.state_dict()
-    mapping = build_mapping(len(model.encoder.layer_stack),
-                            len(model.decoder.layer_stack),
-                            len(model.postnet.convolutions),
-                            model.speaker_emb is not None)
-    trees = {"params": {}, "state": {}}
-    for name, (which, path, t) in mapping.items():
-        v = sd[name].detach().cpu().numpy()
-        _put(trees[which], path, np.array(v.T if t else v, order="C"))
-    return _finish(trees["params"]), _finish(trees["state"])
+    full = {k: named[k] if k in named else torch.zeros_like(v)
+            for k, v in sd.items()}
+    return _trees(full, _fs2_mapping(model))[0]
+
+
+def named_from_jax_params_tree(model, tree):
+    """A tree in the layout of the JAX ``params`` -> parameter name of
+    ``model`` -> fp32 tensor (``jax_params_tree`` run backwards); raises
+    ValueError where a leaf is missing or has another shape.  Lists may be
+    maps with string indices, as a checkpoint stores them."""
+    mapping, out = _fs2_mapping(model), {}
+    for name, p in model.named_parameters():
+        _, path, t = mapping[name]
+        try:
+            leaf = tree
+            for k in path:
+                leaf = leaf[str(k)] if isinstance(leaf, dict) and isinstance(k, int) \
+                    else leaf[k]
+            v = _tensor(leaf, t)
+        except (KeyError, IndexError, TypeError):
+            raise ValueError(f"no leaf /{'/'.join(map(str, path))}") from None
+        if tuple(v.shape) != tuple(p.shape):
+            raise ValueError(f"/{'/'.join(map(str, path))}: shape "
+                             f"{tuple(v.shape)}, the model's {tuple(p.shape)}")
+        out[name] = v.float()
+    return out
 
 
 def load_vocoder_from_jax(vocoder, params):

@@ -121,3 +121,11 @@ def collate_episode(sup_samples_list, qry_samples_list, max_seq_len=1000):
     sup, sup_meta = stack(sup_samples_list)
     qry, qry_meta = stack(qry_samples_list)
     return sup, qry, sup_meta, qry_meta
+
+
+def split_batch(batch, indices):
+    """Re-slice a collated Batch by sample indices (reference
+    ``split_reprocess``, ``lightning/collate.py:63-126``) -- inner-loop
+    minibatching over a support set."""
+    idx = torch.as_tensor(indices, dtype=torch.long)
+    return Batch(*(None if t is None else t[idx.to(t.device)] for t in batch))

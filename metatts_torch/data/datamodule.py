@@ -1,10 +1,18 @@
-"""Datamodule: the datasets and frozen episode samplers of the val and test
-stages (the JAX package's ``data/datamodule.py``; the training loaders wait
-for ROADMAP Queue 1 item 6).
+"""Datamodules: datasets and samplers per algorithm type (the JAX package's
+``data/datamodule.py``).
+
+Registry mirrors the reference (``lightning/datamodules/__init__.py:6-14``):
+  base      -- plain supervised loaders
+  baseline  -- flat shuffled train batches, frozen episodic val/test
+  meta      -- episodic train + frozen episodic val/test
+
+The training loaders make numpy's draws in the JAX package's order, so both
+packages yield the same utterances batch for batch from the same seed.
 """
 
 import numpy as np
 
+from .collate import collate_batch, collate_episode
 from .dataset import TTSDataset
 from .episodes import EpisodeSampler
 
@@ -33,11 +41,7 @@ class ConcatDataset:
         return ds.speaker_label(i)
 
 
-class EpisodeDataModule:
-    """The train, val and test splits of every preprocess config, with the
-    val and test stages' frozen episodes (reference
-    ``baseline_datamodule.py`` / ``meta_datamodule.py``)."""
-
+class BaseDataModule:
     def __init__(self, preprocess_configs, train_config, algorithm_config,
                  log_dir=".", spk_refer_wav=False, seed=43):
         self.pcfgs = preprocess_configs
@@ -66,6 +70,34 @@ class EpisodeDataModule:
         self.train_set = self._load_split("train")
         self.val_set = self._load_split("val")
         self.test_set = self._load_split("test")
+
+    def train_batches(self, batch_size, rng=None):
+        """Endless (Batch, CollateMeta) pairs of ``batch_size`` training
+        utterances: a fresh permutation per epoch, or draws with replacement
+        where the corpus is smaller than a batch (the JAX package's branch
+        for tiny corpora)."""
+        rng = rng or np.random.RandomState(self.seed)
+        n = len(self.train_set)
+        if n < batch_size:
+            print(f"[data] dataset has {n} < batch_size={batch_size} "
+                  f"utterances; sampling with replacement")
+            while True:
+                idx = rng.randint(0, n, size=batch_size)
+                yield collate_batch([self.train_set[int(j)] for j in idx],
+                                    self.max_seq_len)
+        while True:
+            order = rng.permutation(n)
+            for i in range(0, n - batch_size + 1, batch_size):
+                samples = [self.train_set[j] for j in order[i:i + batch_size]]
+                yield collate_batch(samples, self.max_seq_len)
+
+
+class BaselineDataModule(BaseDataModule):
+    """Flat train loader + frozen episodic val/test
+    (reference ``baseline_datamodule.py``)."""
+
+    def setup(self):
+        super().setup()
         task = self.acfg["adapt"]["train"]
         test_task = self.acfg["adapt"]["test"]
         self.val_sampler = EpisodeSampler(
@@ -85,3 +117,36 @@ class EpisodeDataModule:
             n_tasks_per_label, self.log_dir, "test")
         for d in descs:
             yield d, self.test_sampler.episode_from_description(d)
+
+
+class MetaDataModule(BaselineDataModule):
+    """Episodic training (reference ``meta_datamodule.py``)."""
+
+    def setup(self):
+        super().setup()
+        task = self.acfg["adapt"]["train"]
+        self.train_sampler = EpisodeSampler(
+            self.train_set, task["shots"], task["queries"], seed=self.seed)
+
+    def train_episode_batches(self, meta_batch_size):
+        """Endless ``collate_episode`` tuples (sup, qry, sup metas, qry
+        metas) of ``meta_batch_size`` episodes each."""
+        if self.acfg["adapt"]["type"] == "lang":
+            raise NotImplementedError(
+                "language episodes (the support/query re-split and phoneme "
+                "representations) are not ported yet: ROADMAP Queue 1 item 11")
+        while True:
+            sup, qry = self.train_sampler.sample_meta_batch(meta_batch_size)
+            yield collate_episode(sup, qry, self.max_seq_len)
+
+
+DATAMODULES = {
+    "base": BaseDataModule,
+    "baseline": BaselineDataModule,
+    "meta": MetaDataModule,
+    "imaml": MetaDataModule,
+}
+
+
+def get_datamodule(algorithm_type):
+    return DATAMODULES[algorithm_type]

@@ -17,6 +17,9 @@ class LossValues(NamedTuple):
     energy: Any
     duration: Any
 
+    def to_dict(self, prefix=""):
+        return {prefix + k: v for k, v in zip(self._fields, self)}
+
 
 def _masked_mean(err, mask):
     m = mask.float()

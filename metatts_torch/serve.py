@@ -124,7 +124,7 @@ class SynthesisEngine:
         model = FastSpeech2(preprocess_cfg, model_cfg, algorithm_cfg,
                             stats or DEFAULT_STATS, n_speakers,
                             generator=torch.Generator().manual_seed(0))
-        _, report = load_checkpoint(ckpt_path, model)
+        _, _, report = load_checkpoint(ckpt_path, model)
         for r in report:
             print(f"[ckpt surgery] {r}")
         return cls(model, preprocess_cfg, model_cfg, algorithm_cfg, device=device)

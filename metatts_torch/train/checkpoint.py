@@ -22,8 +22,9 @@ reference's ``lightning/systems/system.py:115-192``):
 * a leaf missing from the checkpoint: keep the init and report it.
 
 The report lines are the JAX package's, word for word.  The optimizer
-state is not read, and ``save_checkpoint`` writes it empty: the port's Adam
-state does not yet cross packages.
+state is ``NoamAdam.state_tree``'s: the tree flax makes of the JAX
+package's optax chain, so either package resumes the other's checkpoints.
+As in the JAX package it is dropped whenever surgery changed a leaf.
 """
 
 import os
@@ -296,13 +297,15 @@ def merge_with_surgery(like, raw, prefix=""):
     return like, report
 
 
-def save_checkpoint(path, model, step):
+def save_checkpoint(path, model, step, optimizer=None):
     """Write ``model``'s parameters and BatchNorm statistics at ``step`` as
-    the JAX package's checkpoint (``params``, ``state``, an empty
-    ``opt_state``, ``step``), through a temporary file and a rename."""
+    the JAX package's checkpoint (``params``, ``state``, ``opt_state``,
+    ``step``), through a temporary file and a rename.  ``opt_state`` is
+    ``optimizer.state_tree(model)``, or empty without an optimizer."""
     from ..convert import jax_trees_from_fs2
     params, state = jax_trees_from_fs2(model)
-    blob = to_bytes({"params": params, "state": state, "opt_state": {},
+    opt_state = {} if optimizer is None else optimizer.state_tree(model)
+    blob = to_bytes({"params": params, "state": state, "opt_state": opt_state,
                      "step": np.asarray(step, np.int64)})
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = path + ".tmp"
@@ -311,18 +314,29 @@ def save_checkpoint(path, model, step):
     os.replace(tmp, path)
 
 
+NO_OPT_STATE = "no optimizer state in the checkpoint: the optimizer starts afresh"
+
+
 def load_checkpoint(path, model):
     """Load a checkpoint of either package into ``model`` (in place) under
-    the surgery rules.  The optimizer state is not read.  Returns
-    (step, report lines)."""
+    the surgery rules.  Returns (opt_state, step, report lines):
+    ``opt_state`` is the checkpoint's optimizer tree (for
+    ``NoamAdam.load_state_tree``), or None where surgery changed a leaf (the
+    JAX package's rule) or the checkpoint holds none (an empty tree, as
+    checkpoints written without an optimizer have; a report line says so)."""
     from ..convert import jax_trees_from_fs2, load_fs2_from_jax
     with open(path, "rb") as f:
         raw = msgpack_restore(f.read())
     like_params, like_state = jax_trees_from_fs2(model)
     params, report = merge_with_surgery(like_params, raw.get("params", {}))
     state, srep = merge_with_surgery(like_state, raw.get("state", {}))
+    report += srep
     load_fs2_from_jax(model, params, state)
-    return int(np.asarray(_host_array(raw.get("step", 0)))), report + srep
+    step = int(np.asarray(_host_array(raw.get("step", 0))))
+    opt_state = None if report else raw.get("opt_state") or None
+    if not report and opt_state is None:
+        report.append(NO_OPT_STATE)
+    return opt_state, step, report
 
 
 @torch.no_grad()

@@ -1,22 +1,30 @@
-"""The test stage's loop (the JAX package's ``train/loop.py``: ``Trainer``
-with its ``test`` and ``_save_test_audio``).
+"""Training and test loops (the JAX package's ``train/loop.py``: ``Trainer``
+with ``fit``, ``validate``, ``test`` and the in-loop synthesis).
 
-For every frozen test task: adapt on the support set with saving-step
-snapshots (``System.test_adapt_tasks``, or ``test_adapt_batched`` over
-``test_task_batch`` tasks at once), write the task's CSV of query losses
-and, with a vocoder, one teacher-forced ``recon`` wav from the un-adapted
-weights and one ``step_<ckpt>-FTstep_<n>.synth`` wav with its figure per
-saving step.  Training runs (``fit``) wait for ROADMAP Queue 1 item 6.
+``fit`` runs the system's training step on the datamodule's batches
+(episodes for the meta system) with the JAX package's cadences: a log line
+and the train CSV every ``log_step``, episodic validation every
+``val_step``, a synthesized training sample every ``synth_step`` and
+``step_<n>.ckpt`` + ``last.ckpt`` every ``save_step`` and at the end.
+``test`` adapts on every frozen test task with saving-step snapshots
+(``System.test_adapt_tasks``, or ``test_adapt_batched`` over
+``test_task_batch`` tasks at once) and writes the task's CSV of query
+losses and, with a vocoder, one teacher-forced ``recon`` wav from the
+un-adapted weights and one ``step_<ckpt>-FTstep_<n>.synth`` wav with its
+figure per saving step.
 """
 
 import os
+import time
 
+import numpy as np
 import torch
 
 from ..algorithms.adapt import episode_speaker_args
 from ..algorithms.base import episode
 from ..data.collate import collate_episode
 from ..models.loss import LossValues
+from .checkpoint import load_checkpoint, save_checkpoint
 from .logging import ExperimentLogger
 from .saver import Saver
 
@@ -27,6 +35,7 @@ class Trainer:
         self.system = system
         self.dm = datamodule
         self.tcfg = train_cfg
+        self.steps = train_cfg["step"]
         self.output_dir = output_dir
         self.exp_name = exp_name
         self.ckpt_dir = os.path.join(output_dir, "ckpt", exp_name)
@@ -36,10 +45,223 @@ class Trainer:
         self.logger = ExperimentLogger(self.saver.log_dir, exp_name)
         self.vocoder = vocoder
 
+    # ------------------------------------------------------------- train
+
     def fit(self, resume_from=None, max_steps=None):
-        raise NotImplementedError(
-            "training runs (Trainer.fit, the training loaders, the prefetcher) "
-            "are not ported yet: ROADMAP Queue 1 item 6")
+        """Train to ``max_steps`` (default ``step.total_step``), resuming
+        from a checkpoint of either package: its weights, its step and,
+        where surgery changed nothing, its optimizer state.
+
+        Left out against the JAX package: the device mesh (ROADMAP Queue 1
+        item 13), and ``train.transfer_mel_dtype``, TPU transfer plumbing,
+        which is read and ignored.  Failures of the in-loop synthesis and of
+        the validation sample are not caught, where the JAX package prints
+        them and goes on: a kernel fault on the card must not hide behind a
+        run that goes on.  ``train.profile``: "simple" (default) times every
+        step and prints the ``[profile]`` line at the end, "trace" also
+        writes a ``torch.profiler`` trace of steps 4-8 under
+        ``<log_dir>/profile``, "off" neither."""
+        from ..data.prefetch import Prefetcher
+        from ..utils.profiling import StepTimer, device_memory_stats, trace
+        system = self.system
+        total = max_steps or self.steps["total_step"]
+        log_every = self.steps["log_step"]
+        val_every = self.steps["val_step"]
+        save_every = self.steps["save_step"]
+        synth_every = self.steps.get("synth_step", 0)
+
+        self.logger.log_hyperparams({
+            "model": system.mcfg, "train": self.tcfg, "algorithm": system.acfg})
+        if resume_from:
+            opt_state, step, report = load_checkpoint(resume_from, system.model)
+            if opt_state is not None:
+                system.optimizer.load_state_tree(opt_state, system.model)
+            system.global_step = step
+            for r in report:
+                print(f"[ckpt surgery] {r}")
+
+        meta = system.algorithm_type in ("meta", "imaml")
+        if meta:
+            gen = self.dm.train_episode_batches(
+                system.acfg["adapt"]["train"]["meta_batch_size"])
+        else:
+            gen = self.dm.train_batches(self.tcfg["optimizer"]["batch_size"])
+        gen = Prefetcher(gen, depth=2)   # collation behind the card's work
+
+        prof_mode = self.tcfg.get("profile", "simple")
+        timer = StepTimer() if prof_mode != "off" else None
+        trace_cm = None
+        t0 = time.time()
+        t_warm = warm_step = None   # wall clock after the first step
+        try:
+            while system.global_step < total:
+                if prof_mode == "trace" and system.global_step == 3 and trace_cm is None:
+                    trace_cm = trace(os.path.join(self.saver.log_dir, "profile"))
+                    trace_cm.__enter__()
+                if timer:
+                    timer.__enter__()
+                if meta:
+                    sup, qry = next(gen)[:2]
+                    losses = system.train_step(sup, qry)
+                else:
+                    batch, _ = next(gen)
+                    losses = system.train_step(batch)
+                step = system.global_step
+                if timer:
+                    float(losses.total)   # wait for the card, so the wall is real
+                    timer.__exit__()
+                if t_warm is None:
+                    t_warm, warm_step = time.time(), step
+                if trace_cm is not None and step >= 8:
+                    trace_cm.__exit__(None, None, None)
+                    trace_cm = None
+                    prof_mode = "simple"
+                if step % log_every == 0 or step == total:
+                    self._log_step(step, total, losses, t0, timer)
+                if step % val_every == 0 and hasattr(self.dm, "val_episodes"):
+                    self.validate(step)
+                if self.vocoder is not None and synth_every and step % synth_every == 0:
+                    self.synth_sample(step, sup if meta else batch, episode_batched=meta)
+                if step % save_every == 0 or step == total:
+                    for name in (f"step_{step}.ckpt", "last.ckpt"):
+                        save_checkpoint(os.path.join(self.ckpt_dir, name), system.model,
+                                        step, system.optimizer)
+        finally:
+            gen.close()
+            if trace_cm is not None:
+                trace_cm.__exit__(None, None, None)
+        if timer and timer.stats():
+            self._log_profile(timer.stats(), device_memory_stats(), t_warm, warm_step)
+        return system
+
+    def _log_step(self, step, total, losses, t0, timer):
+        self.saver.log_train(step, losses)
+        self.logger.log_metrics(step, losses.to_dict("train/"))
+        rate = step / max(time.time() - t0, 1e-9)
+        prof = ""
+        if timer and timer.stats():
+            s = timer.stats()
+            prof = f" step {s['mean_ms']:.0f}ms p95 {s['p95_ms']:.0f}ms"
+            self.logger.log_metrics(step, {"profile/step_mean_ms": s["mean_ms"],
+                                           "profile/step_p95_ms": s["p95_ms"]})
+        print(f"step {step}/{total} total={float(losses.total):.4f} "
+              f"mel={float(losses.mel):.4f} ({rate:.2f} it/s{prof})")
+
+    def _log_profile(self, s, mem, t_warm, warm_step):
+        """The ``[profile]`` line: the StepTimer's stats (the step alone),
+        the steps/s after the first step with validation, synthesis and
+        checkpoints included, and the peak device memory."""
+        step = self.system.global_step
+        peak = max((m.get("peak_bytes_in_use") or 0 for m in mem.values()), default=0)
+        e2e = ""
+        if t_warm is not None and step > warm_step:
+            e2e_rate = (step - warm_step) / max(time.time() - t_warm, 1e-9)
+            e2e = f", e2e {e2e_rate:.2f} it/s incl val/ckpt"
+            self.logger.log_metrics(step, {"profile/e2e_steps_per_sec": e2e_rate})
+        print(f"[profile] {s['steps']} steps: mean {s['mean_ms']:.1f}ms "
+              f"p50 {s['p50_ms']:.1f}ms p95 {s['p95_ms']:.1f}ms "
+              f"({s['steps_per_sec']:.2f} it/s{e2e})"
+              + (f"; peak device memory {peak / 2**30:.2f} GiB" if peak else ""))
+        self.logger.log_metrics(step, {
+            "profile/final_mean_ms": s["mean_ms"],
+            "profile/final_p95_ms": s["p95_ms"],
+            **({"profile/peak_hbm_bytes": peak} if peak else {})})
+
+    # ---------------------------------------------------------- validate
+
+    def validate(self, step, max_tasks=None, task_batch=None):
+        """Episodic validation: every frozen val task, ``task_batch``
+        (default ``train.test_task_batch``; "auto" is 1, one card) at a time
+        through ``System.validation_step_batched``, one task through
+        ``validation_step``; one CSV row per task, and with a vocoder the
+        first task's sample (``_save_val_sample``).  Returns the rows."""
+        tb = task_batch or self.tcfg.get("test_task_batch", 1)
+        if tb == "auto":
+            tb = 1
+        totals, first_pair = [], []
+
+        def run_batched(buf):
+            sup_b, qry_b, _, _ = collate_episode([b[1] for b in buf], [b[2] for b in buf])
+            if not first_pair:
+                first_pair.append((episode(sup_b, 0), episode(qry_b, 0)))
+            if len(buf) == 1:
+                rows = [[float(x) for x in self.system.validation_step(
+                    episode(sup_b, 0), episode(qry_b, 0))]]
+            else:
+                losses_E = self.system.validation_step_batched(sup_b, qry_b)
+                rows = [[float(x[e]) for x in losses_E] for e in range(len(buf))]
+            for (i, _, _), row in zip(buf, rows):
+                totals.append(row)
+                self.saver.log_task_csv("Validation", f"val_{i:03d}",
+                                        [(step, LossValues(*row))])
+
+        buf = []
+        for i, (_, (sup, qry)) in enumerate(self.dm.val_episodes()):
+            if max_tasks and i >= max_tasks:
+                break
+            buf.append((i, sup, qry))
+            if len(buf) == max(1, int(tb)):
+                run_batched(buf)
+                buf = []
+        if buf:
+            run_batched(buf)
+        if first_pair and self.vocoder is not None:
+            # the first task's audio and synthesized-vs-ground-truth figure
+            # (reference Saver on_validation_batch_end, saver.py:96-105)
+            self._save_val_sample(step, *first_pair[0])
+        if totals:
+            mean = np.mean(totals, axis=0)
+            print(f"[val @ {step}] total={mean[0]:.4f} mel={mean[1]:.4f}")
+        return totals
+
+    @torch.no_grad()
+    def _save_val_sample(self, step, sup, qry):
+        """Adapt on the support set as the val step does (first order, the
+        train task's steps and lr, no dropout), run a teacher-forced query
+        forward, and write the reconstruction and prediction wavs and a
+        two-panel synthesized vs ground-truth spectrogram with the target
+        pitch/energy tracks (reference ``synth_one_sample_with_target``,
+        ``callbacks/utils.py:11-54``)."""
+        from .synth_utils import denormalize, expand_by_duration
+        system = self.system
+        task = system.acfg["adapt"]["train"]
+        sup, qry = sup.to(system.device), qry.to(system.device)
+        adapted = system.adaptor.adapt_first_order(system.params, sup, steps=task["steps"],
+                                                   lr=task["lr"], train=False)
+        qry_c = qry._replace(speaker_args=episode_speaker_args(sup.speaker_args,
+                                                               qry.speaker_args))
+        out = system.adaptor.forward(adapted, qry_c, train=False, average_spk_emb=True)
+
+        hop = system.pcfg["preprocessing"]["stft"]["hop_length"]
+        mel_len = int(qry.mel_lens[0])   # teacher-forced: the prediction's too
+        if mel_len <= 0:
+            return
+        host = lambda t: t.detach().float().cpu().numpy()
+        mel_pred = host(out.postnet_mel[0, :mel_len])
+        mel_target = host(qry.mels[0, :mel_len])
+        for tag, mel in (("reconstructed", mel_target), ("synthesized", mel_pred)):
+            wav = self.vocoder.infer(torch.from_numpy(mel[None]),
+                                     lengths=[mel_len * hop])[0]
+            path = self.saver.save_audio("Validation", f"step_{step}", f"sample.{tag}", wav)
+            self.logger.log_artifact(step, "audio", path)
+
+        # the target pitch/energy tracks on both panels (reference
+        # synth_one_sample_with_target uses the targets)
+        src_len = int(qry.src_lens[0])
+        d = host(qry.d_targets[0, :src_len])
+        pcfg = system.pcfg["preprocessing"]
+        pitch, energy = host(qry.p_targets[0]), host(qry.e_targets[0])
+        pitch = (expand_by_duration(pitch[:src_len], d)
+                 if pcfg["pitch"]["feature"] == "phoneme_level" else pitch)[:mel_len]
+        energy = (expand_by_duration(energy[:src_len], d)
+                  if pcfg["energy"]["feature"] == "phoneme_level" else energy)[:mel_len]
+        pitch = denormalize(pitch, system.stats["pitch"][2], system.stats["pitch"][3])
+        energy = denormalize(energy, system.stats["energy"][2], system.stats["energy"][3])
+        fig = self.saver.save_panel_figure(
+            "Validation", f"step_{step}", "sample",
+            [(mel_pred, pitch, energy), (mel_target, pitch, energy)],
+            ["Synthesized Spectrogram", "Ground-Truth Spectrogram"])
+        self.logger.log_artifact(step, "figure", fig)
 
     # -------------------------------------------------------------- test
 
@@ -159,3 +381,31 @@ class Trainer:
         for ft_step, params in snapshots:
             vocode_and_save(params, f"step_{ckpt_step}-FTstep_{ft_step}.synth",
                             teacher=False)
+
+    # --------------------------------------------------- in-loop synthesis
+
+    @torch.no_grad()
+    def synth_sample(self, step, batch, episode_batched=False):
+        """Every synth_step: reconstruct (teacher-forced) and synthesize the
+        batch's first utterance through the vocoder (reference Saver,
+        ``saver.py:51-59,214-274``), on the unfused eval forward as in the
+        JAX package."""
+        system = self.system
+        if episode_batched:
+            batch = episode(batch, 0)
+        one = type(batch)(*(None if t is None else t[:1] for t in batch)).to(system.device)
+        hop = system.pcfg["preprocessing"]["stft"]["hop_length"]
+        for tag, teacher in (("recon", None), ("synth", False)):
+            out = system.adaptor.forward(system.params, one, train=False,
+                                         teacher_forced=teacher)
+            mel_len = int(out.mel_lens[0])
+            if mel_len <= 0:
+                continue
+            wav = self.vocoder.infer(out.postnet_mel[:, :mel_len],
+                                     lengths=[mel_len * hop])[0]
+            path = self.saver.save_audio("Training", f"step_{step}", f"sample.{tag}", wav)
+            self.logger.log_artifact(step, "audio", path)
+            fig = self.saver.save_mel_figure(
+                "Training", f"step_{step}", f"sample.{tag}",
+                out.postnet_mel[0, :mel_len].float().cpu().numpy())
+            self.logger.log_artifact(step, "figure", fig)

@@ -7,6 +7,10 @@ in the JAX package's order of transformations (an optax chain): clip by
 global norm, then Adam, then decoupled weight decay, then the learning
 rate; with ``grad_acc_step`` > 1 the gradients of that many calls are
 averaged and applied on the last (optax ``MultiSteps``).
+
+``state_tree`` / ``load_state_tree`` carry the state across packages: the
+tree ``flax.serialization.to_state_dict`` makes of the JAX package's optax
+chain, so a checkpoint of either package resumes in the other.
 """
 
 import numpy as np
@@ -87,3 +91,75 @@ class NoamAdam:
             u = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
             u = u + self.weight_decay * p.float()
             p.add_((lr * u).to(p.dtype))
+
+    # ------------------------------------------------- the optax layout
+
+    def _named(self, tree, model):
+        from ..convert import named_from_jax_params_tree
+        got = named_from_jax_params_tree(model, tree)
+        return {n: got[n].to(self.mu[n].device) for n in self.mu}
+
+    @staticmethod
+    def _moments(model, named):
+        """A moment tree in the layout of the JAX ``params``, its lists as
+        maps with string indices, as ``to_state_dict`` writes them."""
+        from ..convert import jax_params_tree
+
+        def as_state_dict(t):
+            if isinstance(t, list):
+                return {str(i): as_state_dict(v) for i, v in enumerate(t)}
+            if isinstance(t, dict):
+                return {k: as_state_dict(v) for k, v in t.items()}
+            return t
+        return as_state_dict(jax_params_tree(model, named))
+
+    def state_tree(self, model):
+        """The state as ``to_state_dict`` of the JAX optax chain over
+        ``model``'s parameters: ``{'0': {}, '1': {'count', 'mu', 'nu'}, '2':
+        {}, '3': {'count'}}`` (clip, Adam, weight decay, the schedule), inside
+        ``MultiSteps``' ``{'acc_grads', 'gradient_step', 'inner_opt_state',
+        'mini_step', 'skip_state'}`` when gradients accumulate; moments fp32,
+        counts int32, moment trees in the layout of the JAX ``params``."""
+        count = np.asarray(self.count, np.int32)
+        chain = {"0": {}, "1": {"count": count,
+                                "mu": self._moments(model, self.mu),
+                                "nu": self._moments(model, self.nu)},
+                 "2": {}, "3": {"count": count}}
+        if self.acc is None:
+            return chain
+        return {"acc_grads": self._moments(model, self.acc),
+                "gradient_step": count, "inner_opt_state": chain,
+                "mini_step": np.asarray(self.mini_step, np.int32),
+                "skip_state": {}}
+
+    @torch.no_grad()
+    def load_state_tree(self, tree, model):
+        """Load a ``state_tree`` (of either package, as a checkpoint restores
+        it: lists as maps with string indices).  Raises ValueError where the
+        tree has another layout (gradient accumulation on one side only, a
+        missing leaf, another shape) or Adam's and the schedule's counts
+        differ."""
+        chain = tree
+        if self.acc is not None:
+            if "inner_opt_state" not in tree:
+                raise ValueError("the optimizer state has no gradient accumulation "
+                                 f"(grad_acc_step {self.acc_steps} here)")
+            chain = tree["inner_opt_state"]
+        elif "inner_opt_state" in tree:
+            raise ValueError("the optimizer state accumulates gradients "
+                             "(grad_acc_step 1 here)")
+        counts = {int(np.asarray(chain["1"]["count"])), int(np.asarray(chain["3"]["count"]))}
+        if self.acc is not None:
+            counts.add(int(np.asarray(tree["gradient_step"])))
+        if len(counts) != 1:
+            raise ValueError(f"the optimizer state's step counts differ: {sorted(counts)}")
+        mu, nu = self._named(chain["1"]["mu"], model), self._named(chain["1"]["nu"], model)
+        acc = None if self.acc is None else self._named(tree["acc_grads"], model)
+        for n in self.mu:
+            self.mu[n].copy_(mu[n])
+            self.nu[n].copy_(nu[n])
+            if acc is not None:
+                self.acc[n].copy_(acc[n])
+        self.count = counts.pop()
+        if acc is not None:
+            self.mini_step = int(np.asarray(tree["mini_step"]))

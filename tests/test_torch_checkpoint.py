@@ -130,8 +130,8 @@ def test_jax_checkpoint_loads_into_port(fs2, tmp_path):
     opt_state = {"mu": params["mel_linear"], "count": np.asarray(3, np.int32)}
     jck.save_checkpoint(path, params, state, opt_state, 5)
     model = _model(fs2)
-    step, report = ck.load_checkpoint(path, model)
-    assert step == 5 and report == []
+    opt, step, report = ck.load_checkpoint(path, model)
+    assert step == 5 and report == [] and int(opt["count"]) == 3
     ref = _model(fs2, params, state, seed=2).state_dict()
     for k, v in model.state_dict().items():
         assert torch.equal(v, ref[k]), k
@@ -171,8 +171,8 @@ def test_surgery_matches_jax(fs2, tmp_path, case):
     model = _model(fs2)
     like_p, like_s = jax_trees_from_fs2(model)
     ref_p, ref_s, _, _, ref_report = jck.load_checkpoint(path, like_p, like_s, {})
-    step, report = ck.load_checkpoint(path, model)
-    assert report == ref_report and len(report) >= 1
+    opt, step, report = ck.load_checkpoint(path, model)
+    assert report == ref_report and len(report) >= 1 and opt is None
     assert any(line.startswith({"resized": "resized", "mismatch": "shape mismatch",
                                 "missing": "missing"}[case]) for line in report)
     got_p, got_s = jax_trees_from_fs2(model)

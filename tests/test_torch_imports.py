@@ -95,7 +95,9 @@ def test_port_imports_no_flax_msgpack_optax(path):
 @pytest.mark.parametrize("module", [
     "metatts_torch.algorithms.adapt", "metatts_torch.algorithms.base",
     "metatts_torch.algorithms.meta", "metatts_torch.models.loss",
-    "metatts_torch.ops.attention", "metatts_torch.train.optim"])
+    "metatts_torch.ops.attention", "metatts_torch.train.optim",
+    "metatts_torch.algorithms", "metatts_torch.algorithms.baseline",
+    "metatts_torch.data.prefetch", "metatts_torch.utils.profiling"])
 def test_training_slice_modules_are_checked(module):
     """The training slice's modules are among those imported with JAX
     blocked above, and their files among those searched for its name."""

@@ -50,7 +50,7 @@ from metatts_torch.algorithms.meta import MetaSystem
 from metatts_torch.convert import (jax_trees_from_fs2, load_fs2_from_jax,
                                    load_vocoder_from_jax)
 from metatts_torch.data.collate import collate_episode
-from metatts_torch.data.datamodule import EpisodeDataModule
+from metatts_torch.data.datamodule import BaselineDataModule
 from metatts_torch.data.dataset import TTSDataset
 from metatts_torch.models import nn as tnn
 from metatts_torch.models import transformer
@@ -150,7 +150,7 @@ def episodes(setup):
     """The frozen test tasks of both packages' datamodules."""
     jdm = JaxDataModule([setup["pcfg"]], setup["tcfg"], setup["acfg"],
                         log_dir=os.path.join(setup["root"], "jax_log"))
-    dm = EpisodeDataModule([setup["pcfg"]], setup["tcfg"], setup["acfg"],
+    dm = BaselineDataModule([setup["pcfg"]], setup["tcfg"], setup["acfg"],
                            log_dir=os.path.join(setup["root"], "port_log"))
     jdm.setup()
     dm.setup()
@@ -321,7 +321,7 @@ def test_test_episodes_match_jax(setup, tmp_path):
     """Both packages' datamodules on the same corpus draw the same val and
     test tasks and write the same description files."""
     dms = {}
-    for side, cls in (("jax", JaxDataModule), ("port", EpisodeDataModule)):
+    for side, cls in (("jax", JaxDataModule), ("port", BaselineDataModule)):
         dms[side] = cls([setup["pcfg"]], setup["tcfg"], setup["acfg"],
                         log_dir=str(tmp_path / side))
         dms[side].setup()
@@ -371,7 +371,7 @@ def test_trainer_test_matches_jax(setup, tmp_path, monkeypatch):
                                  output_dir=os.path.join(str(tmp_path), side),
                                  exp_name="exp")
         else:
-            dm = EpisodeDataModule([setup["pcfg"]], setup["tcfg"], setup["acfg"],
+            dm = BaselineDataModule([setup["pcfg"]], setup["tcfg"], setup["acfg"],
                                    log_dir=log)
             dm.setup()
             trainer = Trainer(_port_system(setup), dm, setup["tcfg"], vocoder=vocoder,
@@ -406,7 +406,7 @@ def test_trainer_test_remainder_batch_and_avg_train_spk_emb(setup, tmp_path):
     system = _port_system(setup, avg_train_spk_emb=True, steps=5, saving_steps=[5])
     table = system.model.speaker_emb.model.weight
     mean = table.detach().mean(0)               # both speakers train
-    dm = EpisodeDataModule([setup["pcfg"]], setup["tcfg"], setup["acfg"],
+    dm = BaselineDataModule([setup["pcfg"]], setup["tcfg"], setup["acfg"],
                            log_dir=str(tmp_path / "log"))
     dm.setup()
     calls = []
