@@ -94,6 +94,21 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
               PyTorch's default algorithms);
               ms per step, mel frames/s, peak memory; then one first-order
               ``validation_step``;
+   imaml   -- ``IMAMLSystem.train_step`` at the same base configuration's
+              full width and depth with imaml_emb_vad's adapt settings (5
+              first-order inner steps on einsum attention, CG of 5 steps at
+              reg 0.5) on the train phase's workload: the fp32 hypergradient
+              (after its NaN-zeroing and clip) through the flash kernels
+              against the same step through their plain versions under
+              deterministic algorithms; then one warm-up and 3 timed steps
+              with exactly 10 flash forward and 10 flash backward launches a
+              step (the query's forward and its gradient; inner loop and CG
+              run on einsum), finite losses, parameters that move, peak
+              memory, and one profiled step's device time and idle share;
+   hvp_fwd -- the train phase's meta step with ``model.hvp_mode="fwd"``
+              (one forward-mode JVP of the full support gradient per inner
+              step) against ``"rev"``: the fp32 meta-gradient under
+              deterministic algorithms, then both step times in one call;
 8. test    -- the few-shot test stage at the base configuration: a
               checkpoint written by ``save_checkpoint`` and read by
               ``SynthesisEngine.from_checkpoint`` synthesizes the 8
@@ -140,7 +155,19 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
               then ``Trainer.fit`` of the meta system (meta_emb_vad, 2
               episodes a step, 2 steps, validation at step 2) with its
               launches a step and a validation task;
-10. report -- one JSON line of kernels, then the card's name and power
+10. dvec   -- the GE2E d-vector speaker modes at the base width (3 x
+              LSTM-256 over 160 x 40-mel reference slices) on episodes that
+              ``MetaDataModule(..., spk_refer_wav=True)`` collates from the
+              preprocess phase's corpus (5 support + 3 query utterances):
+              the encoder mode's fp32 meta-gradient through the flash kernels
+              against their plain versions under deterministic algorithms;
+              one second-order ``MetaSystem.train_step`` in ``encoder`` mode
+              (every GE2E tensor moves) and one in ``dvec`` mode (none
+              does), exactly 10 + 10 flash launches each; one first-order
+              ``test_adapt`` task of 10 steps in ``scratch_encoder`` mode
+              (10 + 6 flash launches a step, 10 fused a query evaluation);
+              times of each;
+11. report -- one JSON line of kernels, then the card's name and power
               limit, then the result line.
 
 It exits with an error and prints no result where no CUDA device is
@@ -188,6 +215,15 @@ META_GRAD_TOL = 0.3
 # backward kernels, amplified by the second-order meta-gradient; the train
 # phase prints it), which is what the bf16 bound above has to absorb.
 META_GRAD_TOL_F32 = 1e-4
+# the iMAML hypergradient at fp32 compute under deterministic algorithms.
+# At random init CG's first step meets p'Ap <= 0 and freezes (x = 0), so
+# the adapted modules' hypergradient is 0 and what is left is the frozen
+# encoder's query gradient at w*, clipped: a quantity that any change in
+# the order of the attention's sums moves by ~4e-3 (the card's readings:
+# the kernels 3.716e-3 from the plain versions, einsum attention 3.727e-3
+# from them, PERF.md section 6).  The meta-gradient's 1e-4 above
+# holds there only because its norm is the adapted modules' HVP terms'.
+IMAML_GRAD_TOL_F32 = 1e-2
 # the bf16 flash kernels against their plain versions, beside the TPU
 # tests' tolerances and set from the card's readings (PERF.md, section 6):
 # out max abs 6.3e-4 at worst (T=1000; in a row with few valid keys one
@@ -1269,6 +1305,20 @@ def through_flash(plain, fn):
         A.flash_attention_fwd, A.flash_attention_bwd = kernels
 
 
+def with_einsum(sys_, fn):
+    """fn() with the model's default attention einsum (bf16 scores and
+    softmax at the base config, as the JAX package rounds) instead of flash."""
+    stacks = (sys_.model.encoder, sys_.model.decoder)
+    impls = [m.attn_impl for m in stacks]
+    for m in stacks:
+        m.attn_impl = "einsum"
+    try:
+        return fn()
+    finally:
+        for m, impl in zip(stacks, impls):
+            m.attn_impl = impl
+
+
 def device_profile(fn):
     """fn() under torch.profiler: (its wall ms, synchronised, the CUDA
     events of ``key_averages()``, each event's self device-time attribute)."""
@@ -1303,7 +1353,6 @@ def profile_step(system, sup, qry):
 
 def phase_train():
     import copy
-    import numpy as np
     import torch
     from metatts_torch import config as C
     from metatts_torch.algorithms.meta import MetaSystem, episode
@@ -1314,10 +1363,7 @@ def phase_train():
     tcfg = copy.deepcopy(C.TRAIN_DEFAULTS)
     system = MetaSystem(pcfg, mcfg, tcfg, acfg, n_speakers=N_SPEAKERS, seed=0,
                         device="cuda")
-    n_mels = pcfg["preprocessing"]["mel"]["n_mel_channels"]
-    rng = np.random.RandomState(0)
-    sup = episode_batch(rng, EPISODES, SHOTS, SRC_LEN, MEL_LEN, n_mels, N_SPEAKERS).to("cuda")
-    qry = episode_batch(rng, EPISODES, QUERIES, SRC_LEN, MEL_LEN, n_mels, N_SPEAKERS).to("cuda")
+    sup, qry = _train_workload(pcfg["preprocessing"]["mel"]["n_mel_channels"])
     n_layers = (mcfg["transformer"]["encoder_layer"]
                 + mcfg["transformer"]["decoder_layer"])
     frames = int(sup.mel_lens.sum()) * INNER_STEPS + int(qry.mel_lens.sum())
@@ -1336,22 +1382,9 @@ def phase_train():
         return dict(zip(params, torch.autograd.grad(total, list(params.values()),
                                                     allow_unused=True)))
 
-    def with_einsum(sys_, fn):
-        stacks = (sys_.model.encoder, sys_.model.decoder)
-        impls = [m.attn_impl for m in stacks]
-        for m in stacks:
-            m.attn_impl = "einsum"
-        try:
-            return fn()
-        finally:
-            for m, impl in zip(stacks, impls):
-                m.attn_impl = impl
-
     # fp32 compute: the kernels' fp32 path, where only the order of sums differs
-    system32 = MetaSystem(pcfg, dict(mcfg, compute_dtype="float32",
-                                     activation_dtype="float32",
-                                     attention_scores_dtype="float32"),
-                          tcfg, acfg, n_speakers=N_SPEAKERS, seed=0, device="cuda")
+    system32 = MetaSystem(pcfg, _fp32(mcfg), tcfg, acfg, n_speakers=N_SPEAKERS, seed=0,
+                          device="cuda")
     system32.model.train()
     gap32 = rel_l2(through(False, lambda: query_grad(system32)),
                    through(True, lambda: query_grad(system32)))
@@ -1359,15 +1392,8 @@ def phase_train():
     # kernels are held at kernel level by the flash phase), with PyTorch's
     # deterministic algorithms, so that the plain step repeats itself exactly
     meta32 = lambda: system32._meta_train_step(sup, qry, seed)
-    torch.use_deterministic_algorithms(True)
-    torch.backends.cudnn.deterministic = True
-    try:
-        loss32_k, grads32_k = through(False, meta32)
-        loss32_p, grads32_p = through(True, meta32)
-        _, grads32_p2 = through(True, meta32)
-    finally:
-        torch.use_deterministic_algorithms(False)
-        torch.backends.cudnn.deterministic = False
+    (loss32_k, grads32_k), (loss32_p, grads32_p), (_, grads32_p2) = _deterministic(
+        lambda: [through(False, meta32), through(True, meta32), through(True, meta32)])
     _, grads32_pd = through(True, meta32)      # PyTorch's default algorithms
     meta_gap32, floor32 = rel_l2(grads32_k, grads32_p), rel_l2(grads32_p2, grads32_p)
     loss_gap32 = (abs(float(loss32_k.total) - float(loss32_p.total))
@@ -2095,6 +2121,361 @@ def phase_fit(corpus):
     return launches + others
 
 
+# ---------------------------------------------------------------- imaml
+
+IMAML_CG_STEPS, IMAML_REG = 5, 0.5     # config/algorithm/imaml_emb_vad.yaml
+
+
+def _deterministic(fn):
+    """fn() under PyTorch's deterministic algorithms."""
+    import torch
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        return fn()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+
+
+def _fp32(mcfg):
+    return dict(mcfg, compute_dtype="float32", activation_dtype="float32",
+                attention_scores_dtype="float32")
+
+
+def _train_workload(n_mels):
+    """The train phase's episode (E=1, 5 + 5 utterances, L=128, T=896) on
+    the card, from seed 0."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    sup = episode_batch(rng, EPISODES, SHOTS, SRC_LEN, MEL_LEN, n_mels, N_SPEAKERS)
+    qry = episode_batch(rng, EPISODES, QUERIES, SRC_LEN, MEL_LEN, n_mels, N_SPEAKERS)
+    return sup.to("cuda"), qry.to("cuda")
+
+
+def _profile_line(tag, fn):
+    """One profiled call of fn: wall, device busy, idle share, launches and
+    the flash kernels' share."""
+    wall, events, attr = device_profile(fn)
+    busy = sum(getattr(e, attr) for e in events) / 1e3
+    flash = sum(getattr(e, attr) for e in events
+                if any(n in e.key for n in FLASH_KERNELS)) / 1e3
+    if busy == 0.0:
+        return f"{tag}: no device time in the trace (not measured)"
+    return (f"{tag}: wall {wall:.1f} ms, device busy {busy:.1f} ms (kernel time summed), "
+            f"idle share {max(0.0, 1 - busy / wall):.3f}; {sum(e.count for e in events)} "
+            f"kernel launches; flash {flash:.3f} ms")
+
+
+def phase_imaml():
+    """``IMAMLSystem.train_step`` at the base configuration's full width and
+    depth with imaml_emb_vad's adapt settings on the train phase's
+    workload; see the module docstring."""
+    import copy
+    import torch
+    from metatts_torch import config as C
+    from metatts_torch.algorithms.base import episode
+    from metatts_torch.algorithms.imaml import IMAMLSystem
+    from metatts_torch.ops import attention as A
+
+    pcfg, mcfg, acfg = C.base_configs()          # meta_emb_vad's adapt block
+    acfg.update(name="imaml_emb_vad", type="imaml")
+    acfg["adapt"]["imaml"] = {"reg_param": IMAML_REG, "cg_steps": IMAML_CG_STEPS}
+    acfg["adapt"]["train"].update(shots=SHOTS, queries=QUERIES, steps=INNER_STEPS)
+    tcfg = copy.deepcopy(C.TRAIN_DEFAULTS)
+    n_mels = pcfg["preprocessing"]["mel"]["n_mel_channels"]
+    sup, qry = _train_workload(n_mels)
+    n_layers = mcfg["transformer"]["encoder_layer"] + mcfg["transformer"]["decoder_layer"]
+    card = card_line()
+    seed = 1234
+
+    # the fp32 hypergradient through the kernels against the plain versions
+    sys32 = IMAMLSystem(pcfg, _fp32(mcfg), tcfg, acfg, n_speakers=N_SPEAKERS, seed=0,
+                        device="cuda")
+    step32 = lambda: sys32._train_step(sup, qry, seed)
+    loss_k, g_k = _deterministic(lambda: through_flash(False, step32))
+    loss_p, g_p = _deterministic(lambda: through_flash(True, step32))
+    _, g_p2 = _deterministic(lambda: through_flash(True, step32))
+    gap, floor = rel_l2(g_k, g_p), rel_l2(g_p2, g_p)
+    loss_gap = abs(float(loss_k.total) - float(loss_p.total)) / abs(float(loss_p.total))
+    norm = math.sqrt(sum(float((g.double() ** 2).sum()) for g in g_p.values()))
+    nonzero = sum(bool(g.abs().sum() > 0) for g in g_p.values())
+    print(f"[imaml] fp32 hypergradient (deterministic algorithms, after the NaN-zeroing "
+          f"and the clip at {tcfg['optimizer']['grad_clip_thresh']:g}: norm {norm:.4g}, "
+          f"{nonzero} of {len(g_p)} tensors nonzero) "
+          f"through the kernels' fp32 path vs the plain versions: rel L2 {gap:.3e} "
+          f"(tolerance {IMAML_GRAD_TOL_F32:g}); the plain versions again {floor:.3e}; "
+          f"query loss rel {loss_gap:.3e}")
+    print(f"[imaml]   largest fp32 gaps: {top_gaps(g_k, g_p)}")
+    # where such a gap comes from: the adapted modules' share (lr * reg * x,
+    # 0 when CG's first step meets p'Ap <= 0 and freezes), the one-pass
+    # query gradient's own gap on the same tensors, and the L1 mel losses'
+    # residuals whose sign the kernels' rounding flips
+    modules = acfg["adapt"]["modules"]
+    adapted = [n for n in g_p if n.split(".")[0] in modules]
+    others = [n for n in g_p if n.split(".")[0] not in modules]
+    a_norm = math.sqrt(sum(float((g_p[n].double() ** 2).sum()) for n in adapted))
+    q0 = episode(qry, 0)
+
+    def query_grad():
+        params = sys32.params
+        total, _ = sys32._supervised_loss(params, q0, seed, True)
+        return dict(zip(params, torch.autograd.grad(total, list(params.values()),
+                                                    allow_unused=True)))
+
+    def residuals():
+        with torch.no_grad():
+            out = sys32.adaptor.forward(sys32.params, q0, train=True, seed=seed)
+            keep = out.mel_valid[..., None].expand_as(out.mel)
+            tgt = q0.mels[:, :out.mel.shape[1]]
+            return [(o - tgt)[keep] for o in (out.mel, out.postnet_mel)]
+
+    _, g_e = _deterministic(lambda: with_einsum(sys32, step32))
+    d_k = _deterministic(lambda: through_flash(False, query_grad))
+    d_p = _deterministic(lambda: through_flash(True, query_grad))
+    r_k = _deterministic(lambda: through_flash(False, residuals))
+    r_p = _deterministic(lambda: through_flash(True, residuals))
+    flips = sum(int(((a > 0) != (b > 0)).sum()) for a, b in zip(r_k, r_p))
+    print(f"[imaml]   the adapted modules' hypergradient norm {a_norm:.4g} (of "
+          f"{len(adapted)} tensors); the one-pass fp32 query gradient, kernels vs plain: "
+          f"rel L2 {rel_l2(d_k, d_p):.3e} over every tensor, "
+          f"{rel_l2({n: d_k[n] for n in others}, {n: d_p[n] for n in others}):.3e} over "
+          f"the {len(others)} frozen ones; L1 mel residuals of one query forward whose "
+          f"sign the kernels flip: {flips} of {sum(r.numel() for r in r_p)}; the same "
+          f"hypergradient with einsum attention on the query vs the plain versions "
+          f"{rel_l2(g_e, g_p):.3e}")
+    if not (gap < IMAML_GRAD_TOL_F32 and floor == 0.0 and loss_gap < 1e-5
+            and all(torch.isfinite(g).all() for g in g_k.values())):
+        raise AssertionError("the fp32 iMAML hypergradient through the kernels disagrees "
+                             "with the plain versions")
+    del sys32, g_k, g_p, g_p2, g_e, d_k, d_p
+
+    # the main path, counted: one warm-up step, then timed steps
+    system = IMAMLSystem(pcfg, mcfg, tcfg, acfg, n_speakers=N_SPEAKERS, seed=0,
+                         device="cuda")
+    before = {n: p.detach().clone() for n, p in system.params.items()}
+    system.train_step(sup, qry)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.flash_attention_fwd.launches = A.flash_attention_bwd.launches = 0
+    log, losses = [], []
+    step = _counted(system.train_step, log)
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        losses.append(step(sup, qry))
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / TIMED_STEPS
+    launches = _flash_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = (EPISODES * n_layers, EPISODES * n_layers)
+    if log != [want] * TIMED_STEPS:
+        raise AssertionError(f"iMAML steps launched {log} flash forward / backward "
+                             f"kernels, not {want} each")
+    if not all(math.isfinite(float(v)) for l in losses for v in l):
+        raise AssertionError(f"non-finite iMAML losses {losses}")
+    # a CG step along negative curvature is frozen (alpha 0), which can leave
+    # the adapted modules' hypergradient at 0: only the frozen ones then move
+    moved = sum(not torch.equal(p, before[n]) for n, p in system.params.items())
+    if not moved:
+        raise AssertionError("no parameter moved")
+    prof = _profile_line("profile of one step", lambda: system.train_step(sup, qry))
+    print(f"[imaml] IMAMLSystem.train_step, base config, E={EPISODES}, {SHOTS} support + "
+          f"{QUERIES} query, L={SRC_LEN}, T={MEL_LEN}, {INNER_STEPS} first-order inner "
+          f"steps, {IMAML_CG_STEPS} CG steps, reg {IMAML_REG:g}: {ms:.2f} ms per step "
+          f"(mean of {TIMED_STEPS}), peak memory {peak:.2f} GiB ({card}); flash "
+          f"{log[0][0]} forward + {log[0][1]} backward a step; total loss "
+          f"{', '.join(f'{float(l.total):.4f}' for l in losses)}; {moved} of {len(before)} "
+          f"parameter tensors moved; {prof}")
+    return launches
+
+
+HVP_TIMED = 2         # meta steps timed in each HVP mode
+
+
+def phase_hvp_fwd():
+    """The train phase's meta step with ``model.hvp_mode="fwd"`` (one
+    forward-mode JVP of the full support gradient per inner step) against
+    ``"rev"``; see the module docstring."""
+    import copy
+    import torch
+    from metatts_torch import config as C
+    from metatts_torch.algorithms.meta import MetaSystem
+
+    pcfg, mcfg, acfg = C.base_configs()
+    acfg["adapt"]["train"].update(shots=SHOTS, queries=QUERIES, steps=INNER_STEPS)
+    tcfg = copy.deepcopy(C.TRAIN_DEFAULTS)
+    sup, qry = _train_workload(pcfg["preprocessing"]["mel"]["n_mel_channels"])
+    seed, card = 1234, card_line()
+
+    def system(mode, fp32=False):
+        m = dict(_fp32(mcfg) if fp32 else mcfg, hvp_mode=mode)
+        return MetaSystem(pcfg, m, tcfg, acfg, n_speakers=N_SPEAKERS, seed=0, device="cuda")
+
+    grads = {}
+    for mode in ("rev", "fwd"):
+        s = system(mode, fp32=True)
+        grads[mode] = _deterministic(lambda: s._meta_train_step(sup, qry, seed))
+        del s
+    gap = rel_l2(grads["fwd"][1], grads["rev"][1])
+    loss_gap = abs(float(grads["fwd"][0].total) - float(grads["rev"][0].total))
+    print(f"[hvp_fwd] fp32 meta-gradient (deterministic algorithms), hvp_mode fwd vs rev: "
+          f"rel L2 {gap:.3e} (tolerance {META_GRAD_TOL_F32:g}); query loss gap {loss_gap:.3e}")
+    print(f"[hvp_fwd]   largest gaps: {top_gaps(grads['fwd'][1], grads['rev'][1])}")
+    if not (gap < META_GRAD_TOL_F32 and loss_gap == 0.0
+            and all(g is None or torch.isfinite(g).all() for g in grads["fwd"][1].values())):
+        raise AssertionError("the forward-over-reverse HVP's meta-gradient disagrees with "
+                             "the reverse-over-reverse one")
+    del grads
+    times = {}
+    for mode in ("rev", "fwd"):
+        s = system(mode)
+        s.train_step(sup, qry)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HVP_TIMED):
+            s.train_step(sup, qry)
+        torch.cuda.synchronize()
+        times[mode] = 1e3 * (time.perf_counter() - t0) / HVP_TIMED
+        del s
+    print(f"[hvp_fwd] MetaSystem.train_step at the train phase's workload ({card}): "
+          f"hvp_mode rev {times['rev']:.2f} ms, fwd {times['fwd']:.2f} ms per step (mean of "
+          f"{HVP_TIMED} after one warm-up each, same call)")
+
+
+# ---------------------------------------------------------------- dvec
+
+META_MODULES = ("speaker_emb", "variance_adaptor", "decoder", "mel_linear", "postnet")
+DVEC_QUERIES = 3     # 5 support + 3 query: the 8 utterances a speaker of the corpus has
+DVEC_TEST_STEPS = [5, 10]     # the scratch_encoder test task's saving steps (a depth cut)
+
+
+def phase_dvec(corpus):
+    """The GE2E d-vector speaker modes on the preprocess phase's corpus
+    with its reference slices; see the module docstring."""
+    import copy
+    import torch
+    from metatts_torch import config as C
+    from metatts_torch.algorithms.base import System, episode
+    from metatts_torch.algorithms.meta import MetaSystem
+    from metatts_torch.data.datamodule import MetaDataModule
+    from metatts_torch.models.speaker_encoder import ge2e_dims
+    from metatts_torch.ops.fftblock import fused_fft_block
+
+    root, cfg, stats = corpus
+    _, mcfg, _ = C.base_configs()
+    tcfg = copy.deepcopy(C.TRAIN_DEFAULTS)
+    with open(os.path.join(cfg["path"]["preprocessed_path"], "speakers.json")) as f:
+        n_speakers = len(json.load(f))
+    n_layers = mcfg["transformer"]["encoder_layer"] + mcfg["transformer"]["decoder_layer"]
+    n_dec = mcfg["transformer"]["decoder_layer"]
+    card = card_line()
+    modes = {   # config/algorithm/meta_encoder.yaml, dvec.yaml, scratch_encoder.yaml
+        "encoder": META_MODULES, "dvec": META_MODULES[1:], "scratch_encoder": META_MODULES}
+
+    def acfg_for(mode):
+        acfg = C.deep_merge(C.ALGORITHM_DEFAULTS, C.META_EMB_VAD)
+        acfg["name"] = {"encoder": "meta_encoder"}.get(mode, mode)
+        acfg["adapt"].update(speaker_emb=mode, modules=list(modes[mode]))
+        acfg["adapt"]["train"].update(queries=DVEC_QUERIES, meta_batch_size=EPISODES)
+        return acfg
+
+    def system_for(mode, cls=MetaSystem, fp32=False):
+        sys_ = cls(cfg, _fp32(mcfg) if fp32 else mcfg, tcfg, acfg_for(mode), stats,
+                   n_speakers=n_speakers, seed=0, device="cuda")
+        with torch.no_grad():   # random init predicts ~0 frames, as in _engine
+            sys_.model.variance_adaptor.duration_predictor.linear_layer.bias.fill_(2.0)
+        return sys_
+
+    dm = MetaDataModule([cfg], tcfg, acfg_for("encoder"),
+                        log_dir=os.path.join(root, "dvec", "log"), spk_refer_wav=True)
+    dm.setup()
+    sup, qry = (b.to("cuda") for b in next(dm.train_episode_batches(EPISODES))[:2])
+    ref, valid = sup.speaker_args
+    mel_c, hidden, _, layers = ge2e_dims(mcfg)
+    shots = dm.acfg["adapt"]["train"]["shots"]
+    if not (ref.shape[0] == EPISODES and ref.shape[1] == shots
+            and tuple(ref.shape[3:]) == (160, mel_c) and valid.dtype == torch.bool
+            and bool(valid[..., 0].all())):
+        raise AssertionError(f"d-vector speaker args {tuple(ref.shape)}, {tuple(valid.shape)}")
+    shape = (f"E={EPISODES}, {shots} + {DVEC_QUERIES} utterances, L={sup.texts.shape[-1]}, "
+             f"T={sup.mels.shape[2]}, {ref.shape[2]} reference slices of 160 x {mel_c} "
+             f"({int(valid.sum())} valid in the support), {layers} x LSTM-{hidden}")
+    seed = 1234
+    counts = [0, 0]
+
+    # the encoder mode's fp32 meta-gradient through the kernels vs plain
+    sys32 = system_for("encoder", fp32=True)
+    meta32 = lambda: sys32._meta_train_step(sup, qry, seed)
+    loss_k, g_k = _deterministic(lambda: through_flash(False, meta32))
+    loss_p, g_p = _deterministic(lambda: through_flash(True, meta32))
+    gap = rel_l2(g_k, g_p)
+    loss_gap = abs(float(loss_k.total) - float(loss_p.total)) / abs(float(loss_p.total))
+    lstm = [n for n in g_p if n.startswith("speaker_emb.")]
+    print(f"[dvec] encoder mode, fp32 meta-gradient (deterministic algorithms) through "
+          f"the kernels' fp32 path vs the plain versions: rel L2 {gap:.3e} (tolerance "
+          f"{META_GRAD_TOL_F32:g}); query loss rel {loss_gap:.3e}; the GE2E network's "
+          f"{len(lstm)} tensors' gradient norm "
+          f"{math.sqrt(sum(float((g_p[n].double() ** 2).sum()) for n in lstm)):.4g}")
+    if not (gap < META_GRAD_TOL_F32 and loss_gap < 1e-5 and lstm
+            and all(g is None or torch.isfinite(g).all() for g in g_k.values())):
+        raise AssertionError("the encoder mode's meta-gradient through the kernels "
+                             "disagrees with the plain versions")
+    del sys32, g_k, g_p
+
+    # the main path of each mode, counted
+    for mode in ("encoder", "dvec"):
+        system = system_for(mode)
+        before = {n: p.detach().clone() for n, p in system.params.items()}
+        log = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = _counted(system.train_step, log)(sup, qry)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        changed = {n for n, p in system.params.items() if not torch.equal(p, before[n])}
+        net = {n for n in before if n.startswith("speaker_emb.")}
+        ok_net = not (changed & net) if mode == "dvec" else net <= changed
+        if not (log == [(EPISODES * n_layers,) * 2] and ok_net and len(changed) > len(before) // 2
+                and all(math.isfinite(float(v)) for v in losses)):
+            raise AssertionError(f"{mode} step: launches {log}, {len(changed)} of "
+                                 f"{len(before)} tensors moved, the network's "
+                                 f"{len(changed & net)} of {len(net)}, losses {losses}")
+        counts = [c + n for c, n in zip(counts, log[0])]
+        print(f"[dvec] MetaSystem.train_step, {mode} mode (second order, {INNER_STEPS} "
+              f"inner steps), {shape}: {ms:.2f} ms (the mode's first step, {card}); flash "
+              f"{log[0][0]} + {log[0][1]}; total loss {float(losses.total):.4f}; "
+              f"{len(changed)} of {len(before)} tensors moved, of the GE2E network's "
+              f"{len(net)}: {len(changed & net)}")
+        del system
+
+    # one first-order test task in scratch_encoder mode
+    system = system_for("scratch_encoder", cls=System)
+    sup1, qry1 = episode(sup, 0), episode(qry, 0)
+    log = []
+    fused0 = fused_fft_block.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows, snaps = _counted(system.test_adapt, log)(sup1, qry1, ft_steps=DVEC_TEST_STEPS)
+    torch.cuda.synchronize()
+    task_s = time.perf_counter() - t0
+    n_steps = DVEC_TEST_STEPS[-1]
+    fused = fused_fft_block.launches - fused0
+    net = [n for n in snaps[0][1] if n.startswith("speaker_emb.")]
+    if not (log == [(n_layers * n_steps, n_dec * n_steps)]
+            and fused == n_layers * len(rows)
+            and [ft for ft, _ in rows] == [0] + DVEC_TEST_STEPS
+            and all(math.isfinite(float(v)) for _, l in rows for v in l)
+            and not all(torch.equal(snaps[-1][1][n], snaps[0][1][n]) for n in net)):
+        raise AssertionError(f"scratch_encoder test task: launches {log}, fused {fused}, "
+                             f"rows {rows}")
+    counts = [c + n for c, n in zip(counts, log[0])]
+    print(f"[dvec] System.test_adapt, scratch_encoder mode (first order, {n_steps} steps, "
+          f"evaluations at {[0] + DVEC_TEST_STEPS}): {task_s:.2f} s ({card}); flash "
+          f"{log[0][0]} + {log[0][1]}, fused {fused}; query loss "
+          + ", ".join(f"{float(l.total):.4f}" for _, l in rows))
+    return tuple(counts)
+
+
 def with_time(phase):
     """One phase, with its wall time."""
     t0 = time.perf_counter()
@@ -2134,8 +2515,11 @@ def main():
     try:
         launches = with_time(phase_serve)
         flash_launches = with_time(phase_train)
+        imaml_launches = with_time(phase_imaml)
+        with_time(phase_hvp_fwd)
         test_launches = with_time(functools.partial(phase_test, corpus))
         fit_launches = with_time(functools.partial(phase_fit, corpus))
+        dvec_launches = with_time(functools.partial(phase_dvec, corpus))
     finally:
         shutil.rmtree(corpus[0], ignore_errors=True)
 
@@ -2165,7 +2549,8 @@ def main():
             "source": "metatts_torch/csrc/flash_attention.cu",
             "replaces": f"metatts_tpu/ops/pallas/attention.py:{line}",
             "launches": flash_launches[i], "test_launches": test_launches[i],
-            "fit_launches": fit_launches[i],
+            "fit_launches": fit_launches[i], "imaml_launches": imaml_launches[i],
+            "dvec_launches": dvec_launches[i],
             **main_shape[way],
             "shape": "BH=10 T=896 D=128 bf16",
             **{f"{n}_t128": text_shape[way][n]

@@ -5,7 +5,8 @@
                             -t <train.yaml>... -a <algorithm.yaml>
                             [-e exp_name] [-c ckpt_path] [--device cuda|cpu]
 
-  train   -- ``Trainer.fit`` of the algorithm's system (baseline or meta):
+  train   -- ``Trainer.fit`` of the algorithm's system (baseline, meta or
+             imaml):
              validation, in-loop synthesis and checkpoints at the train
              config's cadences; ``-c`` resumes from a checkpoint of either
              package (weights, step and optimizer state)
@@ -13,8 +14,7 @@
   predict -- synthesize every line of a TextDataset ``--source`` file
 
 For test and predict, ``-c`` loads a checkpoint of either package under
-the surgery rules.  The iMAML system's training waits for ROADMAP Queue 1
-item 9; its test stage is the one every system shares.
+the surgery rules.
 """
 
 import argparse
@@ -26,12 +26,11 @@ import torch
 from . import config as C
 
 
-def build(configs, log_dir=".", device="cuda", stage="train"):
+def build(configs, log_dir=".", device="cuda"):
     """(system, datamodule) of the configs, as the JAX ``main.build``: the
     system and datamodule of the algorithm's type, the stats and speaker
     count from the first corpus's preprocessed files where they exist."""
     from .algorithms import get_system
-    from .algorithms.base import System
     from .data.datamodule import get_datamodule
 
     preprocess_cfgs, model_cfg, train_cfg, algorithm_cfg = configs
@@ -48,9 +47,7 @@ def build(configs, log_dir=".", device="cuda", stage="train"):
     kind = algorithm_cfg["type"]
     dm = get_datamodule(kind)(preprocess_cfgs, train_cfg, algorithm_cfg,
                               log_dir=log_dir, spk_refer_wav=spk_refer_wav)
-    # the test stage is every system's; only iMAML's training step is missing
-    cls = System if kind == "imaml" and stage != "train" else get_system(kind)
-    system = cls(preprocess_cfgs, model_cfg, train_cfg, algorithm_cfg,
+    system = get_system(kind)(preprocess_cfgs, model_cfg, train_cfg, algorithm_cfg,
                  stats=stats, n_speakers=n_speakers, device=device)
     return system, dm
 
@@ -62,7 +59,7 @@ def main(args, configs):
 
     log_dir = os.path.join(args.output_dir, "log", args.exp_name)
     os.makedirs(log_dir, exist_ok=True)
-    system, dm = build(configs, log_dir=log_dir, device=args.device, stage=args.stage)
+    system, dm = build(configs, log_dir=log_dir, device=args.device)
     if args.ckpt_path and args.stage != "train":
         _, _, report = load_checkpoint(args.ckpt_path, system.model)
         for r in report:

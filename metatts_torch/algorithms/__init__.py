@@ -1,17 +1,15 @@
 """Training systems registry (reference ``lightning/systems/__init__.py:5-14``)."""
 
 from .baseline import BaselineSystem
+from .imaml import IMAMLSystem
 from .meta import MetaSystem
 
 SYSTEMS = {
     "baseline": BaselineSystem,
     "meta": MetaSystem,
+    "imaml": IMAMLSystem,
 }
 
 
 def get_system(algorithm_type):
-    if algorithm_type == "imaml":
-        raise NotImplementedError(
-            "the iMAML system (algorithms/imaml.py) is not ported yet: "
-            "ROADMAP Queue 1 item 9")
     return SYSTEMS[algorithm_type]

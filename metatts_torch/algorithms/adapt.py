@@ -39,16 +39,44 @@ class _Step:
     """What one custom-HVP SGD step needs besides its tensors."""
 
     def __init__(self, adaptor, names_a, names_f, lr, sup, train, seed,
-                 fast_impl, exact_impl):
+                 fast_impl, exact_impl, hvp_mode):
         self.adaptor, self.names_a, self.names_f = adaptor, names_a, names_f
         self.lr, self.sup, self.train, self.seed = lr, sup, train, seed
         self.fast_impl, self.exact_impl = fast_impl, exact_impl
+        self.hvp_mode = hvp_mode
 
     def loss(self, a, f, impl):
         # the same seed in the forward and in the HVP: the same dropout masks
         return self.adaptor._support_loss(
             dict(zip(self.names_a, a)), dict(zip(self.names_f, f)), self.sup,
             self.train, self.seed, impl)
+
+    def hvp_rev(self, a, f, u):
+        """(H_aa u, H_fa u) as the gradient of grad_a L . u (reverse over
+        reverse); None where a tensor gets no gradient."""
+        with torch.enable_grad():
+            a_d = [t.detach().requires_grad_() for t in a]
+            f_d = [t.detach().requires_grad_() for t in f]
+            loss = self.loss(a_d, f_d, self.exact_impl)
+            g = torch.autograd.grad(loss, a_d, create_graph=True, allow_unused=True)
+            g_dot_u = sum((gi * ui).sum() for gi, ui in zip(g, u)
+                          if gi is not None and gi.requires_grad)
+            h = torch.autograd.grad(g_dot_u, a_d + f_d, allow_unused=True)
+        return h[:len(a)], h[len(a):]
+
+    def hvp_fwd(self, a, f, u):
+        """(H_aa u, H_fa u) as one forward-mode JVP of the full gradient
+        grad_{a,f} L in the direction (u, 0) (forward over reverse: by the
+        symmetry of mixed partials, the pair ``hvp_rev`` computes)."""
+        # torch.utils.checkpoint carries no tangents through torch.func's
+        # transforms; plain einsum is the same function without the recompute
+        impl = "einsum" if self.exact_impl == "einsum_remat" else self.exact_impl
+        grad = torch.func.grad(
+            lambda a_, f_: self.loss(list(a_), list(f_), impl), argnums=(0, 1))
+        a, f = tuple(t.detach() for t in a), tuple(t.detach() for t in f)
+        _, (h_a, h_f) = torch.func.jvp(
+            grad, (a, f), (tuple(u), tuple(torch.zeros_like(t) for t in f)))
+        return h_a, h_f
 
 
 class _HVPStep(torch.autograd.Function):
@@ -60,7 +88,9 @@ class _HVPStep(torch.autograd.Function):
     backward: the exact step Jacobian VJP ``da = u - lr * H_aa u``,
               ``df = -lr * H_fa u`` from ONE Hessian-vector product,
               recomputed from the saved step inputs on ``exact_impl``
-              attention, with the forward's dropout masks replayed.
+              attention, with the forward's dropout masks replayed; reverse
+              over reverse (``hvp_mode="rev"``) or forward over reverse
+              (``"fwd"``).
     """
 
     @staticmethod
@@ -82,16 +112,10 @@ class _HVPStep(torch.autograd.Function):
         step = ctx.step
         tensors = ctx.saved_tensors
         n = len(step.names_a)
-        with torch.enable_grad():
-            a_d = [t.detach().requires_grad_() for t in tensors[:n]]
-            f_d = [t.detach().requires_grad_() for t in tensors[n:]]
-            loss = step.loss(a_d, f_d, step.exact_impl)
-            g = torch.autograd.grad(loss, a_d, create_graph=True, allow_unused=True)
-            g_dot_u = sum((gi * ui).sum() for gi, ui in zip(g, u)
-                          if gi is not None and gi.requires_grad)
-            h = torch.autograd.grad(g_dot_u, a_d + f_d, allow_unused=True)
-        da = [ui if hi is None else ui - step.lr * hi for ui, hi in zip(u, h[:n])]
-        df = [None if hi is None else -step.lr * hi for hi in h[n:]]
+        hvp = step.hvp_fwd if step.hvp_mode == "fwd" else step.hvp_rev
+        h_a, h_f = hvp(tensors[:n], tensors[n:], u)
+        da = [ui if hi is None else ui - step.lr * hi for ui, hi in zip(u, h_a)]
+        df = [None if hi is None else -step.lr * hi for hi in h_f]
         return (None, *da, *df)
 
 
@@ -141,24 +165,25 @@ class Adaptor:
 
         Second order (``model.second_order_impl``): "custom_hvp" runs the
         forward gradient on ``model.fast_attention_impl`` and the HVP on
-        ``model.inner_attention_impl`` (both default "einsum_remat"); any
-        other value unrolls the steps on ``inner_attention_impl``, since the
-        flash kernel is differentiable once only.  First order runs the
-        config's attention (flash on the card)."""
+        ``model.inner_attention_impl`` (both default "einsum_remat"), the
+        HVP reverse over reverse or, with ``model.hvp_mode="fwd"``, forward
+        over reverse; any other value unrolls the steps on
+        ``inner_attention_impl``, since the flash kernel is differentiable
+        once only.  First order runs the config's attention (flash on the
+        card)."""
         adapted, frozen = partition(params, self.modules)
         so_impl = self.mcfg.get("second_order_impl", "custom_hvp")
         inner_impl = self.mcfg.get("inner_attention_impl", "einsum_remat")
         seeds = L.split(seed, steps)
         if not first_order and so_impl == "custom_hvp":
-            if self.mcfg.get("hvp_mode", "rev") != "rev":
-                raise NotImplementedError(
-                    "hvp_mode='fwd' (forward-over-reverse HVP) is not ported "
-                    "yet: ROADMAP Queue 1 item 4")
             fast_impl = self.mcfg.get("fast_attention_impl", "einsum_remat")
+            hvp_mode = self.mcfg.get("hvp_mode", "rev")
+            if hvp_mode not in ("rev", "fwd"):
+                raise ValueError(f"hvp_mode {hvp_mode!r}: expected rev | fwd")
             names_a, names_f = list(adapted), list(frozen)
             for s in seeds:
                 step = _Step(self, names_a, names_f, lr, sup, train, s,
-                             fast_impl, inner_impl)
+                             fast_impl, inner_impl, hvp_mode)
                 out = _HVPStep.apply(step, *adapted.values(), *frozen.values())
                 adapted = dict(zip(names_a, out))
             return merge(adapted, frozen)
@@ -203,5 +228,9 @@ class Adaptor:
 
 def episode_speaker_args(sup_args, qry_args):
     """The query conditions on the support speakers (1-way tasks): the
-    first support id, broadcast to the query count."""
+    first support id, broadcast to the query count; in the d-vector modes
+    the support's reference slices themselves (the query averages their
+    embeddings)."""
+    if isinstance(sup_args, tuple):
+        return sup_args
     return sup_args[:1].expand(qry_args.shape[0])

@@ -12,7 +12,7 @@ import os
 
 import torch
 
-from ..data.collate import Batch
+from ..data.collate import map_batch
 from ..models import nn as L
 from ..models.fastspeech2 import FastSpeech2
 from ..models.loss import LossValues
@@ -27,7 +27,7 @@ SNAPSHOT_BUDGET = 4e9
 
 def episode(batch, e):
     """Episode ``e`` of a batch stacked on a leading episode axis."""
-    return Batch(*(None if t is None else t[e] for t in batch))
+    return map_batch(lambda t: t[e], batch)
 
 
 def _plan(saving_steps, max_steps):
@@ -237,9 +237,8 @@ class System:
             return
         K = sup_batch.texts.shape[0]
         if test_cfg.get("batch_sub_tasks", True) and K > 1:
-            sup_K = Batch(*(None if t is None else t[:, None] for t in sup_batch))
-            qry_K = Batch(*(None if t is None else t[None].expand(K, *t.shape)
-                            for t in qry_batch))
+            sup_K = map_batch(lambda t: t[:, None], sup_batch)
+            qry_K = map_batch(lambda t: t[None].expand(K, *t.shape), qry_batch)
             rows_K, snaps_K = self.test_adapt_batched(sup_K, qry_K, ft_steps)
             for i in range(K):
                 rows = [(ft, LossValues(*(float(v[i]) for v in vals)))
@@ -249,6 +248,6 @@ class System:
                 yield f"_{i}", rows, snapshots
             return
         for i in range(K):
-            sup_i = Batch(*(None if t is None else t[i:i + 1] for t in sup_batch))
+            sup_i = map_batch(lambda t: t[i:i + 1], sup_batch)
             rows, snapshots = self.test_adapt(sup_i, qry_batch, ft_steps)
             yield f"_{i}", rows, snapshots

@@ -49,10 +49,13 @@ def _vp_paths(name):
     return m
 
 
-def build_mapping(n_encoder, n_decoder, n_postnet, speaker_table):
+def build_mapping(n_encoder, n_decoder, n_postnet, speaker_table,
+                  ge2e_layers=0):
     """torch name -> ("params" | "state", path list, transpose?), for a
     FastSpeech2 with these layer counts and, if ``speaker_table``, a
-    speaker table."""
+    speaker table, or with ``ge2e_layers`` > 0 a GE2E d-vector network of
+    that many LSTM layers (torch's and resemblyzer's names and (4H, in)
+    layout; the JAX tree's ``lstm/layers/k/w_ih`` is (in, 4H))."""
     m = {"encoder.src_word_emb.weight":
          ("params", ["encoder", "src_word_emb", "table"], False)}
     for stack, n in (("encoder", n_encoder), ("decoder", n_decoder)):
@@ -79,18 +82,25 @@ def build_mapping(n_encoder, n_decoder, n_postnet, speaker_table):
         m[f"{pre}.1.running_var"] = ("state", ["postnet", "convs", i, "var"], False)
     if speaker_table:
         m["speaker_emb.model.weight"] = ("params", ["speaker_emb", "table"], False)
+    for k in range(ge2e_layers):
+        path = ["speaker_emb", "lstm", "layers", k]
+        for name, key, t in (("weight_ih", "w_ih", True), ("weight_hh", "w_hh", True),
+                             ("bias_ih", "b_ih", False), ("bias_hh", "b_hh", False)):
+            m[f"speaker_emb.model.lstm.{name}_l{k}"] = ("params", path + [key], t)
+    if ge2e_layers:
+        m["speaker_emb.model.linear.weight"] = (
+            "params", ["speaker_emb", "linear", "w"], True)
+        m["speaker_emb.model.linear.bias"] = ("params", ["speaker_emb", "linear", "b"], False)
     return m
 
 
 def _jax_mapping(params):
     """``build_mapping`` for a JAX FastSpeech2 ``params`` tree."""
-    if "speaker_emb" in params and "table" not in params["speaker_emb"]:
-        raise NotImplementedError(
-            "GE2E speaker-encoder parameters are not ported yet: "
-            "ROADMAP Queue 1 item 11")
+    spk = params.get("speaker_emb", {})
     return build_mapping(len(params["encoder"]["layers"]),
                          len(params["decoder"]["layers"]),
-                         len(params["postnet"]["convs"]), "speaker_emb" in params)
+                         len(params["postnet"]["convs"]), "table" in spk,
+                         len(spk["lstm"]["layers"]) if "lstm" in spk else 0)
 
 
 def _get(tree, path):
@@ -145,8 +155,9 @@ _JAX_KEY_ORDER = {k: i for i, k in enumerate((
     "speaker_emb", "src_word_emb", "layers", "attn", "ffn", "w_q", "w_k",
     "w_v", "fc", "w1", "w2", "ln", "duration_predictor", "pitch_predictor",
     "energy_predictor", "pitch_embedding", "energy_embedding", "pitch_bins",
-    "energy_bins", "conv1", "ln1", "conv2", "ln2", "linear", "convs", "conv",
-    "bn", "w", "b", "scale", "bias", "table", "mean", "var"))}
+    "energy_bins", "conv1", "ln1", "conv2", "ln2", "lstm", "linear", "convs", "conv",
+    "bn", "w", "b", "scale", "bias", "table", "mean", "var", "w_ih", "w_hh",
+    "b_ih", "b_hh"))}
 
 
 def _put(tree, path, value):
@@ -166,10 +177,13 @@ def _finish(tree):
 
 
 def _fs2_mapping(model):
+    spk = model.speaker_emb
+    lstm = getattr(getattr(spk, "model", None), "lstm", None)
     return build_mapping(len(model.encoder.layer_stack),
                          len(model.decoder.layer_stack),
                          len(model.postnet.convolutions),
-                         model.speaker_emb is not None)
+                         spk is not None and lstm is None,
+                         lstm.n_layers if lstm is not None else 0)
 
 
 def _trees(named, mapping):

@@ -17,7 +17,7 @@ MEL_BUCKET = 128
 
 class Batch(NamedTuple):
     """Typed equivalent of the reference 12-tuple (``lightning/collate.py``)."""
-    speaker_args: Any             # (B,) int32
+    speaker_args: Any             # (B,) int32, or (ref_mels, slice_valid)
     texts: Any                    # (B, L) int32
     src_lens: Any                 # (B,) int32
     mels: Optional[Any] = None    # (B, T, n_mels) float32
@@ -27,7 +27,28 @@ class Batch(NamedTuple):
     d_targets: Optional[Any] = None
 
     def to(self, device):
-        return Batch(*(None if t is None else t.to(device) for t in self))
+        return map_batch(lambda t: t.to(device), self)
+
+
+def map_batch(fn, batch):
+    """``fn`` applied to every tensor of a Batch, the members of a
+    d-vector ``speaker_args`` pair included; None fields stay None."""
+    def one(t):
+        if t is None:
+            return None
+        return tuple(fn(x) for x in t) if isinstance(t, tuple) else fn(t)
+    return type(batch)(*(one(t) for t in batch))
+
+
+def stack_batches(batches):
+    """Batches -> one Batch stacked on a new leading (episode) axis."""
+    def stack(fields):
+        if fields[0] is None:
+            return None
+        if isinstance(fields[0], tuple):
+            return tuple(torch.stack(f) for f in zip(*fields))
+        return torch.stack(fields)
+    return type(batches[0])(*(stack(f) for f in zip(*batches)))
 
 
 class CollateMeta:
@@ -40,24 +61,35 @@ class CollateMeta:
 
 
 def collate_batch(samples, max_seq_len=1000, with_mels=True,
-                  fixed_text_len=None, fixed_mel_len=None):
+                  fixed_text_len=None, fixed_mel_len=None, fixed_slices=None):
     """List of dataset sample dicts -> (Batch, CollateMeta).  The text and
-    mel lengths are their buckets unless fixed by the caller."""
+    mel lengths are their buckets unless fixed by the caller.  Samples with
+    ``spk_ref_mel_slices`` (the d-vector speaker modes) give ``speaker_args
+    = (ref (B, S, 160, 40) fp32, valid (B, S) bool)``: each utterance's
+    slices zero-padded to S, the most of any sample unless fixed."""
     src_lens = np.array([len(s["text"]) for s in samples], np.int32)
     L = fixed_text_len or bucket_length(int(src_lens.max()), TEXT_BUCKET)
     texts = pad_1d([s["text"] for s in samples], L).astype(np.int32)
 
     speaker_ids = np.array([s["speaker"] for s in samples], np.int32)
+    t = torch.from_numpy
     if "spk_ref_mel_slices" in samples[0]:
-        raise NotImplementedError(
-            "reference-mel speaker slices (d-vector modes) wait for the "
-            "GE2E speaker modes, ROADMAP Queue 1 item 11")
+        S = fixed_slices or max(s["spk_ref_mel_slices"].shape[0] for s in samples)
+        ref = np.zeros((len(samples), S) + samples[0]["spk_ref_mel_slices"].shape[1:],
+                       np.float32)
+        valid = np.zeros((len(samples), S), bool)
+        for i, s in enumerate(samples):
+            k = s["spk_ref_mel_slices"].shape[0]
+            ref[i, :k] = s["spk_ref_mel_slices"]
+            valid[i, :k] = True
+        speaker_args = (t(ref), t(valid))
+    else:
+        speaker_args = t(speaker_ids)
     meta = CollateMeta([s["id"] for s in samples],
                        [s["raw_text"] for s in samples], speaker_ids)
-    t = torch.from_numpy
 
     if not with_mels or "mel" not in samples[0]:
-        return Batch(speaker_args=t(speaker_ids), texts=t(texts),
+        return Batch(speaker_args=speaker_args, texts=t(texts),
                      src_lens=t(src_lens)), meta
 
     mel_lens = np.array([s["mel"].shape[0] for s in samples], np.int32)
@@ -76,7 +108,7 @@ def collate_batch(samples, max_seq_len=1000, with_mels=True,
     durations = _clamp_durations(durations, mel_lens)
 
     return Batch(
-        speaker_args=t(speaker_ids),
+        speaker_args=speaker_args,
         texts=t(texts),
         src_lens=t(src_lens),
         mels=t(mels),
@@ -104,19 +136,21 @@ def _clamp_durations(durations, mel_lens):
 def collate_episode(sup_samples_list, qry_samples_list, max_seq_len=1000):
     """Lists of per-episode sample lists -> (sup Batch[E, ...], qry
     Batch[E, ...], sup metas, qry metas).  Every episode takes the text and
-    mel buckets of the longest utterance of all of them."""
+    mel buckets of the longest utterance of all of them, and in the
+    d-vector modes the slice count of the utterance with the most."""
     all_samples = [s for ep in sup_samples_list for s in ep] + \
                   [s for ep in qry_samples_list for s in ep]
     L = bucket_length(max(len(s["text"]) for s in all_samples), TEXT_BUCKET)
     T = bucket_length(max(s["mel"].shape[0] for s in all_samples),
                       MEL_BUCKET, max_seq_len)
+    S = (max(s["spk_ref_mel_slices"].shape[0] for s in all_samples)
+         if "spk_ref_mel_slices" in all_samples[0] else None)
 
     def stack(eps):
-        pairs = [collate_batch(ep, max_seq_len, fixed_text_len=L, fixed_mel_len=T)
+        pairs = [collate_batch(ep, max_seq_len, fixed_text_len=L, fixed_mel_len=T,
+                               fixed_slices=S)
                  for ep in eps]
-        batch = Batch(*(None if f[0] is None else torch.stack(f)
-                        for f in zip(*(b for b, _ in pairs))))
-        return batch, [m for _, m in pairs]
+        return stack_batches([b for b, _ in pairs]), [m for _, m in pairs]
 
     sup, sup_meta = stack(sup_samples_list)
     qry, qry_meta = stack(qry_samples_list)
@@ -128,4 +162,4 @@ def split_batch(batch, indices):
     ``split_reprocess``, ``lightning/collate.py:63-126``) -- inner-loop
     minibatching over a support set."""
     idx = torch.as_tensor(indices, dtype=torch.long)
-    return Batch(*(None if t is None else t[idx.to(t.device)] for t in batch))
+    return map_batch(lambda t: t[idx.to(t.device)], batch)

@@ -99,7 +99,7 @@ class FastSpeech2(nn.Module):
 
         spk_emb = None
         if self.speaker_emb is not None:
-            spk_emb = self.speaker_emb(batch.speaker_args)
+            spk_emb = self.speaker_emb(batch.speaker_args, self.cdtype)
             if average_spk_emb:
                 # query synthesis conditions on the mean support embedding
                 spk_emb = spk_emb.mean(0, keepdim=True).expand(

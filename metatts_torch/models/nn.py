@@ -169,6 +169,54 @@ class ConvTranspose1d(Conv1d):
         return y
 
 
+class LSTM(nn.Module):
+    """Multi-layer LSTM over (N, T, D) in torch's gate order i, f, g, o,
+    written as per-step cell arithmetic: a speaker encoder adapted in the
+    second-order inner loop is differentiated twice, which cuDNN's RNN
+    cannot be.  Parameter names and shapes are ``torch.nn.LSTM``'s
+    (``weight_ih_l{k}`` (4H, in), ``weight_hh_l{k}`` (4H, H), two biases),
+    resemblyzer's layout.  Products round their inputs to ``cdtype`` and
+    accumulate in fp32, as the JAX package's ``nn.lstm``."""
+
+    def __init__(self, d_in, d_hidden, n_layers):
+        super().__init__()
+        self.n_layers, self.hidden = n_layers, d_hidden
+        for k in range(n_layers):
+            din = d_in if k == 0 else d_hidden
+            self.register_parameter(f"weight_ih_l{k}",
+                                    nn.Parameter(torch.empty(4 * d_hidden, din)))
+            self.register_parameter(f"weight_hh_l{k}",
+                                    nn.Parameter(torch.empty(4 * d_hidden, d_hidden)))
+            self.register_parameter(f"bias_ih_l{k}", nn.Parameter(torch.empty(4 * d_hidden)))
+            self.register_parameter(f"bias_hh_l{k}", nn.Parameter(torch.empty(4 * d_hidden)))
+
+    def reset_parameters(self, generator):
+        for p in self.parameters():
+            _uniform(p, 1.0 / math.sqrt(self.hidden), generator)
+
+    def forward(self, x, cdtype=torch.float32):
+        """x (N, T, D) -> (outputs (N, T, H), each layer's final h
+        (layers, N, H))."""
+        N, T = x.shape[:2]
+        finals = []
+        for k in range(self.n_layers):
+            w_ih, w_hh, b_ih, b_hh = (getattr(self, f"{n}_l{k}") for n in (
+                "weight_ih", "weight_hh", "bias_ih", "bias_hh"))
+            xw = round_to(x, cdtype) @ round_to(w_ih, cdtype).T + b_ih + b_hh
+            w_hh = round_to(w_hh, cdtype).T
+            h = c = x.new_zeros(N, self.hidden, dtype=torch.float32)
+            hs = []
+            for t in range(T):
+                gates = xw[:, t] + round_to(h, cdtype) @ w_hh
+                i, f, g, o = gates.chunk(4, dim=-1)
+                c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+                h = torch.sigmoid(o) * torch.tanh(c)
+                hs.append(h)
+            x = torch.stack(hs, 1)
+            finals.append(h)
+        return x, torch.stack(finals)
+
+
 # ------------------------------------------------------------------ dropout
 
 _M64 = (1 << 64) - 1
@@ -216,9 +264,10 @@ def dropout(x, rate, train, generator):
 def reset_parameters(module, generator):
     """Random init of every layer in ``module`` from ``generator`` (CPU),
     with the JAX package's distributions: uniform(+-1/sqrt(fan_in)) for
-    linears and convs, N(0, 1) for embeddings, ones/zeros for norms."""
+    linears and convs, uniform(+-1/sqrt(H)) for LSTMs, N(0, 1) for
+    embeddings, ones/zeros for norms."""
     for m in module.modules():
-        if isinstance(m, (Linear, Conv1d, Embedding)):
+        if isinstance(m, (Linear, Conv1d, Embedding, LSTM)):
             m.reset_parameters(generator)
         elif isinstance(m, (LayerNorm, BatchNorm)):
             with torch.no_grad():

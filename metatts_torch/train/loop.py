@@ -22,7 +22,7 @@ import torch
 
 from ..algorithms.adapt import episode_speaker_args
 from ..algorithms.base import episode
-from ..data.collate import collate_episode
+from ..data.collate import collate_episode, map_batch
 from ..models.loss import LossValues
 from .checkpoint import load_checkpoint, save_checkpoint
 from .logging import ExperimentLogger
@@ -393,7 +393,7 @@ class Trainer:
         system = self.system
         if episode_batched:
             batch = episode(batch, 0)
-        one = type(batch)(*(None if t is None else t[:1] for t in batch)).to(system.device)
+        one = map_batch(lambda t: t[:1], batch).to(system.device)
         hop = system.pcfg["preprocessing"]["stft"]["hop_length"]
         for tag, teacher in (("recon", None), ("synth", False)):
             out = system.adaptor.forward(system.params, one, train=False,

@@ -524,18 +524,32 @@ def test_train_cli_on_cpu(setup, tmp_path, capsys, kind):
 
 
 def test_train_cli_needs_a_card_and_imaml_raises(setup, tmp_path):
+    """Without a card ``-s train`` raises unless ``--device cpu``; the
+    iMAML system is the port's ``IMAMLSystem`` and ``-s train --device
+    cpu`` with config/algorithm/dev_imaml.yaml (cut to 1 shot, 1 query, 1
+    episode of 1 inner step) takes its steps through ``Trainer.fit``."""
     from metatts_torch.__main__ import main, parse_args
+    from metatts_torch.algorithms.imaml import IMAMLSystem
     tcfg = _step_train_cfg(total_step=1)
     args = parse_args(["-s", "train", "--output_dir", str(tmp_path), "--no_synth"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(args, ([setup["pcfg"]], setup["mcfg"], tcfg, setup["acfg"]))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        main(parse_args(["-s", "train", "--output_dir", str(tmp_path), "--device", "cpu"]),
-             ([setup["pcfg"]], setup["mcfg"], tcfg, _acfg("imaml")))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        get_system("imaml")
+    assert get_system("imaml") is IMAMLSystem
     assert isinstance(_port_system(setup), BaselineSystem)
+    acfg = C.load_algorithm_config(os.path.join(os.path.dirname(__file__), os.pardir, "config",
+                                                "algorithm", "dev_imaml.yaml"))
+    acfg["adapt"]["train"].update(shots=1, queries=1, steps=1, meta_batch_size=1)
+    acfg["adapt"]["test"].update(shots=1, queries=1)
+    tcfg = _step_train_cfg(total_step=2, log_step=1, val_step=100, save_step=2)
+    main(parse_args(["-s", "train", "--output_dir", str(tmp_path), "-e", "imaml",
+                     "--no_synth", "--device", "cpu"]),
+         ([setup["pcfg"]], setup["mcfg"], tcfg, acfg))
+    assert sorted(os.listdir(tmp_path / "ckpt" / "imaml")) == ["last.ckpt", "step_2.ckpt"]
+    with open(tmp_path / "log" / "imaml" / "train.csv") as f:
+        rows = [line.strip().split(",") for line in f][1:]
+    assert [r[0] for r in rows] == ["1", "2"]
+    assert all(np.isfinite(float(v)) for r in rows for v in r[1:])
 
 
 # ------------------------------------------------------- host utilities

@@ -229,9 +229,11 @@ def meta_grad_refs(cfgs, episode):
     pcfg, mcfg, acfg, params, state = cfgs
     sup, qry = episode
     refs = {}
-    for so in ("custom_hvp", "unrolled"):
-        ad = JaxAdaptor(pcfg, dict(mcfg, second_order_impl=so), acfg)
-        refs[so] = _without_jax_dropout(lambda: jax.jit(jax.grad(
+    for key, over in (("custom_hvp", {}), ("unrolled", {}),
+                      ("fwd", {"hvp_mode": "fwd"})):
+        ad = JaxAdaptor(pcfg, dict(mcfg, second_order_impl=key, **over)
+                        if key != "fwd" else dict(mcfg, **over), acfg)
+        refs[key] = _without_jax_dropout(lambda: jax.jit(jax.grad(
             lambda p: ad.meta_learn(p, state, sup, qry, steps=STEPS, lr=INNER_LR,
                                     train=True, rng=jax.random.PRNGKey(0))[0].total))(
                                         params))
@@ -269,6 +271,8 @@ def _port_meta_grad(cfgs, episode, mcfg_over, first_order=False, seed=None):
     # and 1 backward (the frozen encoder needs no gradient there)
     ("custom_hvp", {"attention_impl": "flash", "fast_attention_impl": "flash"},
      (6, 4)),
+    # the forward-over-reverse HVP against the JAX package's
+    ("custom_hvp", {"hvp_mode": "fwd"}, (0, 0)),
 ])
 def test_meta_grad_matches_meta_learn(cfgs, episode, meta_grad_refs,
                                       monkeypatch, so, over, flash_calls):
@@ -291,7 +295,7 @@ def test_meta_grad_matches_meta_learn(cfgs, episode, meta_grad_refs,
     got, _ = _port_meta_grad(cfgs, episode, dict(over, second_order_impl=so))
     assert (calls["fwd"], calls["bwd"]) == flash_calls
     names = list(got)
-    ref = _grads_by_name(meta_grad_refs[so], state, names)
+    ref = _grads_by_name(meta_grad_refs[over.get("hvp_mode", so)], state, names)
     _close_grads(got, ref, atol=2e-5)
     # the second-order terms are far above the tolerance: the first-order
     # gradient of the same episode misses them
@@ -318,9 +322,24 @@ def test_custom_hvp_replays_dropout_masks(cfgs, episode):
     assert max((other[n] - ref[n]).abs().max().item() for n in ref) > 1e-3
 
 
-def test_hvp_fwd_mode_not_ported(cfgs, episode):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port_meta_grad(cfgs, episode, {"hvp_mode": "fwd"})
+def test_hvp_fwd_mode_not_ported(cfgs, episode, meta_grad_refs):
+    """``hvp_mode="fwd"`` (one forward-mode JVP of the full gradient per
+    inner step) gives the reverse-over-reverse meta-gradient: against the
+    port's ``rev`` with dropout on (the masks replayed in both) and
+    against the JAX package's ``fwd`` (the port's counterpart of
+    tests/test_systems.py's fwd-vs-rev check)."""
+    over = {"transformer": dict(cfgs[1]["transformer"], encoder_dropout=0.2,
+                                decoder_dropout=0.2),
+            "variance_predictor": dict(cfgs[1]["variance_predictor"], dropout=0.5)}
+    fwd, _ = _port_meta_grad(cfgs, episode, dict(over, hvp_mode="fwd"), seed=11)
+    rev, _ = _port_meta_grad(cfgs, episode, dict(over, hvp_mode="rev"), seed=11)
+    _close_grads(fwd, {n: g.numpy() for n, g in rev.items()}, atol=2e-5)
+    got, _ = _port_meta_grad(cfgs, episode, {"hvp_mode": "fwd"})
+    names = list(got)
+    ref = _grads_by_name(meta_grad_refs["fwd"], cfgs[4], names)
+    _close_grads(got, ref, atol=2e-5)
+    with pytest.raises(ValueError, match="hvp_mode"):
+        _port_meta_grad(cfgs, episode, {"hvp_mode": "jvp"})
 
 
 # ------------------------------------------------------------ meta system
