@@ -167,7 +167,28 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
               ``test_adapt`` task of 10 steps in ``scratch_encoder`` mode
               (10 + 6 flash launches a step, 10 fused a query evaluation);
               times of each;
-11. report -- one JSON line of kernels, then the card's name and power
+11. lang   -- cross-lingual meta-training with the codebook phoneme
+              embedding (config/algorithm/meta_lang_codebook.yaml): a
+              LibriTTS-layout corpus from a seed (4 speakers x 8 utterances
+              at 24 kHz with ``.normalized.txt`` transcripts, the preprocess
+              phase's length spread, MFA-style TextGrids) through
+              ``prepare_align`` and ``Preprocessor(device="cuda")`` with
+              representations (one mel launch per utterance); language
+              episodes from ``MetaDataModule`` (every query phoneme in its
+              support, ``phn_ref`` equal to a host recomputation) at
+              representation_dim 80, the built-in featurizer's; at the base
+              width with the 128-entry hard codebook, 2 episodes of 5 + 3
+              utterances, 5 inner steps: the fp32 meta-gradient through the
+              flash kernels against their plain versions under
+              deterministic algorithms (``emb_banks`` included; rows no
+              episode picks exactly 0), one ``train_step`` (10 + 10 flash
+              launches an episode, exactly the picked rows move) and a
+              profiled one; at the config's representation_dim 256 on the
+              train phase's episode, steps timed against the same meta step
+              without the codebook; ``python -m metatts_torch -s train``'s
+              entry point for 2 steps on the corpus, its ``last.ckpt`` read
+              back with the codebook and its Adam moments bit for bit;
+12. report -- one JSON line of kernels, then the card's name and power
               limit, then the result line.
 
 It exits with an error and prints no result where no CUDA device is
@@ -1051,12 +1072,36 @@ def _textgrid(path, intervals):
         f.write("\n".join(lines))
 
 
+def _utterance(rng, n, sr, f0):
+    """One synthetic utterance of ``n`` samples at ``sr``: a harmonic tone
+    at ``f0`` with vibrato, loud and quiet phones and a little noise,
+    silences at both ends -> (float32 wav, ``phones`` intervals in s)."""
+    import numpy as np
+    t = np.arange(n) / sr
+    f = f0 * (1 + 0.06 * np.sin(2 * np.pi * rng.uniform(0.5, 3.0) * t))
+    ph = 2 * np.pi * np.cumsum(f) / sr
+    wav = 0.3 * np.sin(ph) + 0.12 * np.sin(2 * ph) + 0.05 * np.sin(3 * ph)
+    wav *= 0.25 + 0.75 * np.abs(np.sin(np.pi * rng.uniform(0.7, 2.0) * t))
+    wav += 0.005 * rng.randn(n)
+    lead, tail = 0.15, 0.2
+    wav[: int(lead * sr)] = 0.002 * rng.randn(int(lead * sr))
+    wav[n - int(tail * sr):] = 0.002 * rng.randn(int(tail * sr))
+    intervals, start = [(0.0, lead, "sil")], lead
+    while start < n / sr - tail - 0.05:
+        end = min(start + rng.uniform(0.06, 0.16), n / sr - tail)
+        intervals.append((start, end, PP_PHONES[rng.randint(len(PP_PHONES))]
+                          if rng.rand() > 0.08 else "sp"))
+        start = end
+    intervals[-1] = intervals[-1][:2] + (PP_PHONES[0],)
+    intervals.append((start, n / sr, "sil"))
+    return wav.astype(np.float32), intervals
+
+
 def make_corpus(root, sr, seed=0):
     """A synthetic corpus from a seed: speakers x utterances at 22.05 kHz
     whose mean length is LibriTTS train-clean-100's (``PP_MEAN_S``), each a
-    harmonic tone with the speaker's f0 (vibrato, loud and quiet phones, a
-    little noise), with silences at both ends and a ``phones`` TextGrid.
-    Returns (raw dir, seconds of audio)."""
+    harmonic tone with the speaker's f0 (``_utterance``) with a ``phones``
+    TextGrid.  Returns (raw dir, seconds of audio)."""
     import numpy as np
     from metatts_torch.preprocess.audio_io import save_wav
     rng = np.random.RandomState(seed)
@@ -1069,28 +1114,12 @@ def make_corpus(root, sr, seed=0):
         for u in range(PP_UTTERANCES):
             base = f"{spk}_{u:03d}"
             n = int(lengths[s * PP_UTTERANCES + u] * sr)
-            t = np.arange(n) / sr
-            f = f0 * (1 + 0.06 * np.sin(2 * np.pi * rng.uniform(0.5, 3.0) * t))
-            ph = 2 * np.pi * np.cumsum(f) / sr
-            wav = 0.3 * np.sin(ph) + 0.12 * np.sin(2 * ph) + 0.05 * np.sin(3 * ph)
-            wav *= 0.25 + 0.75 * np.abs(np.sin(np.pi * rng.uniform(0.7, 2.0) * t))
-            wav += 0.005 * rng.randn(n)
-            lead, tail = 0.15, 0.2
-            wav[: int(lead * sr)] = 0.002 * rng.randn(int(lead * sr))
-            wav[n - int(tail * sr):] = 0.002 * rng.randn(int(tail * sr))
+            wav, intervals = _utterance(rng, n, sr, f0)
             d = os.path.join(raw, "train", spk)
             os.makedirs(d, exist_ok=True)
-            save_wav(os.path.join(d, base + ".wav"), wav.astype(np.float32), sr)
+            save_wav(os.path.join(d, base + ".wav"), wav, sr)
             with open(os.path.join(d, base + ".lab"), "w") as fh:
                 fh.write("a synthetic sentence")
-            intervals, start = [(0.0, lead, "sil")], lead
-            while start < n / sr - tail - 0.05:
-                end = min(start + rng.uniform(0.06, 0.16), n / sr - tail)
-                intervals.append((start, end, PP_PHONES[rng.randint(len(PP_PHONES))]
-                                  if rng.rand() > 0.08 else "sp"))
-                start = end
-            intervals[-1] = intervals[-1][:2] + (PP_PHONES[0],)
-            intervals.append((start, n / sr, "sil"))
             _textgrid(os.path.join(root, "TextGrid", spk, base + ".TextGrid"), intervals)
             seconds += n / sr
     return raw, seconds
@@ -2476,6 +2505,345 @@ def phase_dvec(corpus):
     return tuple(counts)
 
 
+# ---------------------------------------------------------------- lang
+
+LANG_SPEAKERS = ("103", "1034", "1040", "1069")   # LibriTTS train-clean-100 speaker ids
+LANG_SR_IN = 24000        # LibriTTS's rate; prepare_align resamples to the config's
+LANG_EPISODES = 2         # meta_lang_codebook.yaml's meta_batch_size is 8: a depth cut
+LANG_QUERIES = 3          # 5 support + 3 query: the 8 utterances a speaker of the corpus has
+LANG_FIT_STEPS = 2
+SSL_DIM = 256             # meta_lang_codebook.yaml's representation_dim (SSL features)
+SSL_TIMED = 3             # steps timed with and without the codebook, interleaved
+
+
+def make_libritts_corpus(root, seed=1):
+    """The preprocess phase's corpus shape in LibriTTS's layout, from a
+    seed: ``corpus/train-clean-100/<speaker>/<chapter>/<base>.wav`` at 24
+    kHz with ``<base>.normalized.txt``, and the MFA-style TextGrids under
+    ``pp/TextGrid``.  Returns (corpus dir, seconds of audio)."""
+    import numpy as np
+    from metatts_torch.preprocess.audio_io import save_wav
+    rng = np.random.RandomState(seed)
+    corpus = os.path.join(root, "corpus")
+    lengths = rng.uniform(*PP_SPREAD_S, len(LANG_SPEAKERS) * PP_UTTERANCES)
+    lengths *= PP_MEAN_S / lengths.mean()
+    seconds = 0.0
+    for s, spk in enumerate(LANG_SPEAKERS):
+        chapter = str(1240 + s)
+        d = os.path.join(corpus, "train-clean-100", spk, chapter)
+        os.makedirs(d, exist_ok=True)
+        for u in range(PP_UTTERANCES):
+            base = f"{spk}_{chapter}_{u:06d}_000000"
+            n = int(lengths[s * PP_UTTERANCES + u] * LANG_SR_IN)
+            wav, intervals = _utterance(rng, n, LANG_SR_IN, 100.0 + 40.0 * s)
+            save_wav(os.path.join(d, base + ".wav"), wav, LANG_SR_IN)
+            with open(os.path.join(d, base + ".normalized.txt"), "w") as fh:
+                fh.write(f"A synthetic sentence, number {u + 1}.\n")
+            _textgrid(os.path.join(root, "pp", "TextGrid", spk, base + ".TextGrid"), intervals)
+            seconds += n / LANG_SR_IN
+    return corpus, seconds
+
+
+def _picked_rows(att_banks, phn_ref):
+    """The ``emb_banks`` rows the hard codebook picks for the non-zero,
+    non-PAD rows of each episode's ``phn_ref``."""
+    import torch
+    picked = set()
+    for ref in phn_ref:
+        rows = torch.nonzero(ref.abs().sum(1) > 0).flatten()
+        rows = rows[rows > 0]
+        sim = (torch.nn.functional.normalize(ref[rows], dim=1)
+               @ torch.nn.functional.normalize(att_banks, dim=1).T)
+        picked |= set(sim.argmax(1).tolist())
+    return sorted(picked)
+
+
+def _flash_zero():
+    from metatts_torch.ops import attention as A
+    A.flash_attention_fwd.launches = A.flash_attention_bwd.launches = 0
+
+
+def phase_lang():
+    """Cross-lingual meta-training with the codebook phoneme embedding,
+    from a raw LibriTTS-layout corpus; see the module docstring."""
+    import copy
+    import tempfile
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+    from metatts_torch import config as C
+    from metatts_torch.__main__ import load_configs, main as cli_main, parse_args
+    from metatts_torch.algorithms.meta import MetaSystem
+    from metatts_torch.data.datamodule import MetaDataModule
+    from metatts_torch.data.lang_episodes import episode_phoneme_representation
+    from metatts_torch.ops import melspec
+    from metatts_torch.preprocess.prepare_align import prepare_align
+    from metatts_torch.preprocess.preprocessor import Preprocessor
+    from metatts_torch.train import checkpoint as ck
+    from metatts_torch.train import loop
+
+    pcfg, mcfg, _ = C.base_configs()
+    n_mels = pcfg["preprocessing"]["mel"]["n_mel_channels"]
+    sr = pcfg["preprocessing"]["audio"]["sampling_rate"]
+    acfg = C.load_algorithm_config(os.path.join(HERE, "config", "algorithm",
+                                                "meta_lang_codebook.yaml"))
+    # the built-in featurizer's phoneme-averaged log-mels are n_mels wide;
+    # the config's 256 is the width of SSL features, which are not here
+    acfg["adapt"]["phoneme_emb"]["representation_dim"] = n_mels
+    acfg["adapt"]["train"].update(queries=LANG_QUERIES, meta_batch_size=LANG_EPISODES)
+    tcfg = copy.deepcopy(C.TRAIN_DEFAULTS)
+    n_layers = mcfg["transformer"]["encoder_layer"] + mcfg["transformer"]["decoder_layer"]
+    card = card_line()
+    counts = [0, 0, 0]            # flash forward, flash backward, mel: the main path's
+    root = tempfile.mkdtemp(prefix="lang_smoke_")
+    try:
+        # a raw corpus -> prepare_align -> Preprocessor with representations
+        t0 = time.perf_counter()
+        corpus, audio_s = make_libritts_corpus(root)
+        write_s = time.perf_counter() - t0
+        cfg = C.deep_merge(pcfg, {
+            "dataset": "LibriTTS",
+            "path": {"corpus_path": corpus, "raw_path": os.path.join(root, "raw"),
+                     "preprocessed_path": os.path.join(root, "pp")},
+            "preprocessing": {"representation": {"enabled": True}},
+            "subsets": {"train": "train-clean-100", "val": "train-clean-100",
+                        "test": "train-clean-100"}})
+        t1 = time.perf_counter()
+        n_utts = prepare_align(cfg)
+        align_s = time.perf_counter() - t1
+        n_want = len(LANG_SPEAKERS) * PP_UTTERANCES
+        rate, first = wavfile.read(os.path.join(
+            root, "raw", "train-clean-100", LANG_SPEAKERS[0],
+            f"{LANG_SPEAKERS[0]}_1240_000000_000000.wav"))
+        if not (n_utts == n_want and rate == sr and first.dtype == np.int16
+                and int(np.abs(first).max()) == 32767):
+            raise AssertionError(f"prepare_align wrote {n_utts} utterances; the first "
+                                 f"at {rate} Hz, {first.dtype}, peak {np.abs(first).max()}")
+        pre = Preprocessor(cfg, device="cuda")
+        melspec.fused_mel_spectrogram.launches = 0
+        t1 = time.perf_counter()
+        lines = pre.build_from_path()["train-clean-100"]
+        pp_s = time.perf_counter() - t1
+        mel_launches = melspec.fused_mel_spectrogram.launches
+        if mel_launches != len(lines) or len(lines) != n_want:
+            raise AssertionError(f"{mel_launches} mel kernel launches for {len(lines)} "
+                                 f"utterances written, {n_want} in the corpus")
+        counts[2] += mel_launches
+        for line in lines:
+            base, spk, text, _ = line.split("|")
+            rep = np.load(os.path.join(root, "pp", "representation",
+                                       f"{spk}-representation-{base}.npy"))
+            if not (rep.shape == (len(text.strip("{}").split()), n_mels)
+                    and np.isfinite(rep).all()):
+                raise AssertionError(f"{base}: representation {rep.shape}")
+        sec = pre.seconds
+        print(f"[lang] corpus: {len(LANG_SPEAKERS)} speakers x {PP_UTTERANCES} utterances "
+              f"in LibriTTS's layout, {audio_s:.1f} s of audio at {LANG_SR_IN} Hz, written "
+              f"in {write_s:.2f} s; prepare_align {align_s:.2f} s "
+              f"({n_utts} utterances resampled to {sr} Hz); Preprocessor(device='cuda') "
+              f"with representations {pp_s:.2f} s: {mel_launches} mel kernel launches for "
+              f"{len(lines)} utterances; per stage s: " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in sec.items()))
+
+        # language episodes
+        with open(os.path.join(root, "pp", "stats.json")) as f:
+            stats = json.load(f)
+        dm = MetaDataModule([cfg], tcfg, acfg, log_dir=os.path.join(root, "log"))
+        dm.setup()
+        sup, qry, sup_m, qry_m, phn_ref = next(dm.train_episode_batches(LANG_EPISODES))
+        index = {b: i for i, b in enumerate(dm.train_set.basename)}
+        for e in range(LANG_EPISODES):
+            sup_ids = set(sup.texts[e][sup.texts[e] > 0].tolist())
+            qry_ids = set(qry.texts[e][qry.texts[e] > 0].tolist())
+            host = episode_phoneme_representation(
+                [dm.train_set[index[i]] for i in sup_m[e].ids])
+            if not (qry_ids <= sup_ids and np.array_equal(phn_ref[e].numpy(), host)
+                    and set(np.flatnonzero(np.abs(host).sum(1)).tolist()) == sup_ids):
+                raise AssertionError(f"episode {e}: query phonemes {sorted(qry_ids - sup_ids)} "
+                                     f"not in the support, or phn_ref is not the host's")
+        shape = (f"E={LANG_EPISODES}, {sup.texts.shape[1]} + {qry.texts.shape[1]} utterances, "
+                 f"L={sup.texts.shape[-1]}, T={sup.mels.shape[2]}")
+        print(f"[lang] MetaDataModule language episodes ({shape}): every query phoneme in "
+              f"its support; phn_ref {tuple(phn_ref.shape)} equals the host recomputation, "
+              f"{int((phn_ref.abs().sum(-1) > 0).sum())} phoneme rows set")
+        sup, qry, phn_ref = sup.to("cuda"), qry.to("cuda"), phn_ref.to("cuda")
+
+        def system_for(acfg_, fp32=False, n_speakers=len(LANG_SPEAKERS)):
+            return MetaSystem(cfg, _fp32(mcfg) if fp32 else mcfg, tcfg, acfg_, stats,
+                              n_speakers=n_speakers, seed=0, device="cuda")
+
+        # the fp32 meta-gradient, the codebook's included, kernels vs plain
+        cb = "phn_emb_generator.emb_banks"
+        seed = 1234
+        sys32 = system_for(acfg, fp32=True)
+        meta32 = lambda: sys32._meta_train_step(sup, qry, seed, phn_ref)
+        (loss_k, g_k), (loss_p, g_p) = _deterministic(
+            lambda: [through_flash(False, meta32), through_flash(True, meta32)])
+        gap, gap_cb = rel_l2(g_k, g_p), rel_l2({cb: g_k[cb]}, {cb: g_p[cb]})
+        loss_gap = abs(float(loss_k.total) - float(loss_p.total)) / abs(float(loss_p.total))
+        picked = _picked_rows(sys32.params["phn_emb_generator.att_banks"].detach(), phn_ref)
+        unpicked = sorted(set(range(g_k[cb].shape[0])) - set(picked))
+        print(f"[lang] fp32 meta-gradient (deterministic algorithms) through the kernels' "
+              f"fp32 path vs the plain versions: rel L2 {gap:.3e}, emb_banks {gap_cb:.3e} "
+              f"(tolerance {META_GRAD_TOL_F32:g}); query loss rel {loss_gap:.3e}; "
+              f"{len(picked)} of {g_k[cb].shape[0]} codebook rows picked, emb_banks "
+              f"gradient norm {float(g_k[cb].norm()):.4g}")
+        if not (gap < META_GRAD_TOL_F32 and gap_cb < META_GRAD_TOL_F32 and loss_gap < 1e-5
+                and picked and unpicked
+                and all(g is None or torch.isfinite(g).all() for g in g_k.values())
+                and not g_k[cb][unpicked].any() and not g_p[cb][unpicked].any()
+                and bool((g_k[cb][picked].abs().sum(1) > 0).all())
+                and g_k["encoder.src_word_emb.weight"] is None):
+            raise AssertionError("the lang meta-gradient through the kernels disagrees with "
+                                 "the plain versions, or reaches the wrong codebook rows")
+        del sys32, g_k, g_p
+
+        # the main path: one meta step at base width, then a profiled one
+        system = system_for(acfg)
+        before = {n: p.detach().clone() for n, p in system.params.items()}
+        picked = _picked_rows(system.params["phn_emb_generator.att_banks"].detach(), phn_ref)
+        log = []
+        torch.cuda.synchronize()
+        _flash_zero()
+        t0 = time.perf_counter()
+        losses = _counted(system.train_step, log)(sup, qry, phn_ref)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        moved = (system.params[cb] != before[cb]).any(1)
+        moved_rows = torch.nonzero(moved).flatten().tolist()
+        if not (log == [(LANG_EPISODES * n_layers,) * 2] and moved_rows == picked
+                and torch.equal(system.params["encoder.src_word_emb.weight"],
+                                before["encoder.src_word_emb.weight"])
+                and all(math.isfinite(float(v)) for v in losses)):
+            raise AssertionError(f"lang step: launches {log}, codebook rows moved "
+                                 f"{moved_rows}, picked {picked}, losses {losses}")
+        counts = [c + n for c, n in zip(counts, log[0] + (0,))]
+        log = []
+        _flash_zero()
+        prof = _profile_line("profiled step", lambda: _counted(system.train_step, log)(
+            sup, qry, phn_ref))
+        counts = [c + n for c, n in zip(counts, log[0] + (0,))]
+        print(f"[lang] MetaSystem.train_step with the {acfg['adapt']['phoneme_emb']['size']}"
+              f"-entry hard codebook, base config, {shape}, {INNER_STEPS} inner steps "
+              f"(custom-HVP): {ms:.2f} ms (the first step, {card}); flash {log[0][0]} + "
+              f"{log[0][1]} in the profiled step; {len(moved_rows)} codebook rows moved, the "
+              f"picked ones; total loss {float(losses.total):.4f}; {prof}")
+        del system
+
+        # the config's representation_dim (SSL features) on the train
+        # phase's episode shape, with phn_ref from a seed, against the same
+        # meta step without the codebook, steps interleaved in one call
+        acfg_ssl = copy.deepcopy(acfg)
+        acfg_ssl["adapt"]["phoneme_emb"]["representation_dim"] = SSL_DIM
+        acfg_spk = copy.deepcopy(acfg_ssl)
+        acfg_spk["adapt"].update(type="spk", phoneme_emb={"type": "embedding",
+                                                          "refresh": False})
+        system = system_for(acfg_ssl, n_speakers=N_SPEAKERS)
+        plain_sys = system_for(acfg_spk, n_speakers=N_SPEAKERS)
+        sup_w, qry_w = _train_workload(n_mels)
+        rng = np.random.RandomState(2)
+        ref_w = np.zeros((EPISODES, 361, SSL_DIM), np.float32)
+        for e in range(EPISODES):
+            ids = np.unique(sup_w.texts[e].cpu().numpy())
+            ref_w[e, ids[ids > 0]] = rng.randn(int((ids > 0).sum()), SSL_DIM)
+        ref_w = torch.from_numpy(ref_w).cuda()
+        before = system.params[cb].detach().clone()
+        system.train_step(sup_w, qry_w, ref_w)                 # warm-up at this shape
+        plain_sys.train_step(sup_w, qry_w)
+        times, log = {"lang": [], "meta": []}, []
+        for _ in range(SSL_TIMED):
+            for tag, run in (("lang", lambda: _counted(system.train_step, log)(
+                    sup_w, qry_w, ref_w)), ("meta", lambda: plain_sys.train_step(sup_w, qry_w))):
+                torch.cuda.synchronize()
+                if tag == "lang":
+                    _flash_zero()
+                t0 = time.perf_counter()
+                losses = run()
+                torch.cuda.synchronize()
+                times[tag].append(1e3 * (time.perf_counter() - t0))
+                if not all(math.isfinite(float(v)) for v in losses):
+                    raise AssertionError(f"{tag} step: losses {losses}")
+        if not (log == [(EPISODES * n_layers,) * 2] * SSL_TIMED
+                and not torch.equal(system.params[cb], before)):
+            raise AssertionError(f"representation_dim {SSL_DIM} steps: launches {log}")
+        counts = [c + sum(n[i] for n in log) if i < 2 else c for i, c in enumerate(counts)]
+        ms_lang, ms_meta = (sum(times[k]) / SSL_TIMED for k in ("lang", "meta"))
+        print(f"[lang] MetaSystem.train_step at representation_dim {SSL_DIM}, the train "
+              f"phase's episode (E={EPISODES}, {SHOTS} + {QUERIES} utterances, L={SRC_LEN}, "
+              f"T={MEL_LEN}), {SSL_TIMED} steps interleaved with the same meta step without "
+              f"the codebook ({card}): {ms_lang:.2f} ms against {ms_meta:.2f} ms, "
+              f"{ms_lang / ms_meta:.3f}x (lang " + ", ".join(f"{t:.2f}" for t in times["lang"])
+              + "; meta " + ", ".join(f"{t:.2f}" for t in times["meta"]) + f"); flash "
+              f"{log[0][0]} + {log[0][1]} a step")
+        del system, plain_sys
+
+        # a short run through the CLI's entry point, then its checkpoint back
+        import yaml
+        files = {}
+        for name, tree in (("pp", cfg), ("algorithm", acfg), ("train", {"step": {
+                "total_step": LANG_FIT_STEPS, "log_step": 1, "val_step": 1000,
+                "save_step": LANG_FIT_STEPS, "synth_step": 1000}})):
+            files[name] = os.path.join(root, f"{name}.yaml")
+            with open(files[name], "w") as f:
+                yaml.safe_dump(tree, f)
+        out = os.path.join(root, "out")
+        args = parse_args(["-s", "train", "-p", files["pp"], "-m",
+                           os.path.join(HERE, "config", "model", "base.yaml"), "-t",
+                           os.path.join(HERE, "config", "train", "base.yaml"), files["train"],
+                           "-a", files["algorithm"], "-e", "lang", "--output_dir", out,
+                           "--no_synth"])
+        runs, fit = [], loop.Trainer.fit
+
+        def fit_and_keep(self, *a, **kw):
+            runs.append({n: p.detach().clone() for n, p in self.system.params.items()
+                         if n.startswith("phn_emb_generator.")})
+            runs.append(fit(self, *a, **kw))
+            return runs[-1]
+
+        loop.Trainer.fit = fit_and_keep
+        log = []
+        try:
+            torch.cuda.synchronize()
+            _flash_zero()
+            t0 = time.perf_counter()
+            _counted(cli_main, log)(args, load_configs(args))
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+        finally:
+            loop.Trainer.fit = fit
+        init, trained = runs
+        want = LANG_FIT_STEPS * LANG_EPISODES * n_layers
+        if log != [(want, want)]:
+            raise AssertionError(f"-s train: flash launches {log}, not {want} each")
+        counts = [c + n for c, n in zip(counts, log[0] + (0,))]
+        fresh = MetaSystem(*load_configs(args), stats, n_speakers=len(LANG_SPEAKERS),
+                           seed=7, device="cuda")
+        opt_state, step, report = ck.load_checkpoint(
+            os.path.join(out, "ckpt", "lang", "last.ckpt"), fresh.model)
+        if report or opt_state is None or step != LANG_FIT_STEPS:
+            raise AssertionError(f"last.ckpt: step {step}, report {report}")
+        fresh.optimizer.load_state_tree(opt_state, fresh.model)
+        same = all(torch.equal(fresh.params[n], trained.params[n])
+                   and torch.equal(fresh.optimizer.mu[n], trained.optimizer.mu[n])
+                   and torch.equal(fresh.optimizer.nu[n], trained.optimizer.nu[n])
+                   for n in init)
+        moved = [n for n in init if not torch.equal(trained.params[n], init[n])]
+        if not (same and fresh.optimizer.count == trained.optimizer.count == LANG_FIT_STEPS
+                and moved == [cb]
+                and bool(trained.optimizer.mu[cb].any())):
+            raise AssertionError(f"the codebook or its moments did not come back from "
+                                 f"last.ckpt bit for bit, or moved {moved}")
+        print(f"[lang] python -m metatts_torch -s train (meta_lang_codebook.yaml at "
+              f"representation_dim {n_mels}, {LANG_EPISODES} episodes a step, base model and "
+              f"train configs) for {LANG_FIT_STEPS} steps on the phase's corpus: "
+              f"{fit_s:.1f} s with the checkpoints ({card}); flash {log[0][0]} + {log[0][1]}; "
+              f"emb_banks moved; last.ckpt read back: the codebook, its Adam moments and "
+              f"the count bit for bit")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return tuple(counts)
+
+
 def with_time(phase):
     """One phase, with its wall time."""
     t0 = time.perf_counter()
@@ -2520,6 +2888,7 @@ def main():
         test_launches = with_time(functools.partial(phase_test, corpus))
         fit_launches = with_time(functools.partial(phase_fit, corpus))
         dvec_launches = with_time(functools.partial(phase_dvec, corpus))
+        lang_launches = with_time(phase_lang)
     finally:
         shutil.rmtree(corpus[0], ignore_errors=True)
 
@@ -2550,7 +2919,7 @@ def main():
             "replaces": f"metatts_tpu/ops/pallas/attention.py:{line}",
             "launches": flash_launches[i], "test_launches": test_launches[i],
             "fit_launches": fit_launches[i], "imaml_launches": imaml_launches[i],
-            "dvec_launches": dvec_launches[i],
+            "dvec_launches": dvec_launches[i], "lang_launches": lang_launches[i],
             **main_shape[way],
             "shape": "BH=10 T=896 D=128 bf16",
             **{f"{n}_t128": text_shape[way][n]
@@ -2562,7 +2931,8 @@ def main():
         "name": "fused_mel_spectrogram", "route": "cuda",
         "source": "metatts_torch/csrc/melspec.cu",
         "replaces": "metatts_tpu/ops/pallas/melspec.py:81",
-        "launches": mel_launches, "fit_launches": fit_launches[3], **mel[MEL_SHAPES[0]],
+        "launches": mel_launches, "fit_launches": fit_launches[3],
+        "lang_launches": lang_launches[2], **mel[MEL_SHAPES[0]],
         "shape": "B=16 T=220500 n_fft=1024 hop=256 mels=80 fp32",
         **{k + "_b1": mel[MEL_SHAPES[1]][k]
            for k in ("ms", "plain_ms", "bound_ms", "library_ms", "device_ms")},

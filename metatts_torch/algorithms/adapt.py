@@ -22,6 +22,7 @@ from torch.func import functional_call
 
 from ..models import nn as L
 from ..models.loss import fastspeech2_loss
+from ..models.phoneme_embedding import get_new_embedding
 
 
 def partition(params, modules):
@@ -208,15 +209,33 @@ class Adaptor:
                              train=train, seed=seed)
         return {k: v.detach() for k, v in out.items()}
 
+    # ------------------------------------------- cross-lingual codebook
+
+    def refresh_phoneme_table(self, params, phn_ref):
+        """``params`` with ``encoder.src_word_emb.weight`` replaced by the
+        table the codebook (``phn_emb_generator.*`` of ``params``) makes
+        from the support set's per-phoneme representations ``phn_ref``
+        (vocab, d_feat) (reference ``meta.py:24-33``): a tensor with a graph
+        back to the codebook, so the outer loop meta-learns it."""
+        att = self.acfg["adapt"]["phoneme_emb"].get("attention", {"type": "hard"})["type"]
+        pre = "phn_emb_generator."
+        codebook = {k[len(pre):]: v for k, v in params.items() if k.startswith(pre)}
+        table = get_new_embedding(codebook, phn_ref, att)
+        return {**params, "encoder.src_word_emb.weight": table}
+
     # -------------------------------------------------------- meta step
 
-    def meta_learn(self, params, sup, qry, *, steps, lr, train, seed=None):
+    def meta_learn(self, params, sup, qry, *, steps, lr, train, seed=None,
+                   phn_ref=None):
         """Adapt on the support set, evaluate on the query set (reference
         ``base_adaptor.py:114-124``).  Returns (LossValues, FS2Output).
         Second order when training, first order otherwise.  The query
         forward teacher-forces and conditions on the averaged support
-        speaker embedding."""
+        speaker embedding.  With ``phn_ref`` the phoneme table is first
+        regenerated from it (``refresh_phoneme_table``)."""
         r_adapt, r_qry = L.split(seed, 2)
+        if phn_ref is not None:
+            params = self.refresh_phoneme_table(params, phn_ref)
         adapted = self.adapt(params, sup, steps=steps, lr=lr,
                              first_order=not train, train=train, seed=r_adapt)
         qry = qry._replace(speaker_args=episode_speaker_args(

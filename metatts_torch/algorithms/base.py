@@ -16,6 +16,7 @@ from ..data.collate import map_batch
 from ..models import nn as L
 from ..models.fastspeech2 import FastSpeech2
 from ..models.loss import LossValues
+from ..models.phoneme_embedding import PhonemeEmbedding
 from ..train.optim import NoamAdam
 from ..utils.tools import resolve_device
 from .adapt import Adaptor, episode_speaker_args
@@ -61,7 +62,16 @@ class System:
         init_seed, train_seed = L.split(seed, 2)
         self.model = FastSpeech2(
             preprocess_cfg, model_cfg, algorithm_cfg, self.stats, n_speakers,
-            generator=torch.Generator().manual_seed(init_seed)).to(self.device)
+            generator=torch.Generator().manual_seed(init_seed))
+        adapt = algorithm_cfg["adapt"]
+        if adapt["type"] == "lang" and adapt["phoneme_emb"]["type"] == "codebook":
+            # the cross-lingual codebook (reference meta.py:24-33) is a
+            # submodule of the model, so its banks are among the parameters
+            # the optimizer, the clip and the checkpoints cover
+            codebook = PhonemeEmbedding(model_cfg, algorithm_cfg)
+            codebook.reset_parameters(torch.Generator().manual_seed(L.fold_in(init_seed, 99)))
+            self.model.phn_emb_generator = codebook
+        self.model.to(self.device)
         self.adaptor = Adaptor(self.model, preprocess_cfg, model_cfg,
                                algorithm_cfg)
         self.optimizer = NoamAdam(self.params, model_cfg, train_cfg)

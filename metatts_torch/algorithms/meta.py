@@ -16,15 +16,17 @@ from .base import System, episode
 class MetaSystem(System):
     algorithm_type = "meta"
 
-    def _episode_loss(self, params, sup, qry, seed, train):
+    def _episode_loss(self, params, sup, qry, seed, train, phn_ref=None):
         task = self.acfg["adapt"]["train"]
         losses, _ = self.adaptor.meta_learn(
             params, sup, qry, steps=task["steps"], lr=task["lr"], train=train,
-            seed=seed)
+            seed=seed, phn_ref=phn_ref)
         return losses
 
-    def _meta_train_step(self, sup, qry, seed):
-        """sup / qry: Batches stacked on a leading episode axis E.  Returns
+    def _meta_train_step(self, sup, qry, seed, phn_ref=None):
+        """sup / qry: Batches stacked on a leading episode axis E; phn_ref
+        (E, vocab, d_feat) regenerates the phoneme table per episode for
+        cross-lingual adaptation (reference ``meta.py:24-33``).  Returns
         (the episodes' mean LossValues, the gradient of the mean total loss
         as name -> tensor); episode e draws from ``split(seed, E)[e]``.
         Each episode is differentiated on its own and the gradients summed,
@@ -35,7 +37,8 @@ class MetaSystem(System):
         self.model.train()
         grads, losses = None, []
         for e, s in enumerate(L.split(seed, n_episodes)):
-            lv = self._episode_loss(params, episode(sup, e), episode(qry, e), s, True)
+            lv = self._episode_loss(params, episode(sup, e), episode(qry, e), s, True,
+                                    None if phn_ref is None else phn_ref[e])
             g = torch.autograd.grad(lv.total / n_episodes,
                                     [params[n] for n in names], allow_unused=True)
             grads = g if grads is None else [
@@ -45,11 +48,12 @@ class MetaSystem(System):
         mean = LossValues(*(torch.stack(v).mean() for v in zip(*losses)))
         return mean, dict(zip(names, grads))
 
-    def train_step(self, sup_batch, qry_batch):
-        """One meta step over episode-stacked support / query Batches.
+    def train_step(self, sup_batch, qry_batch, phn_ref=None):
+        """One meta step over episode-stacked support / query Batches (and,
+        for cross-lingual episodes, their (E, vocab, d_feat) ``phn_ref``).
         Returns the episodes' mean LossValues."""
-        losses, grads = self._meta_train_step(sup_batch.to(self.device),
-                                              qry_batch.to(self.device),
-                                              self.next_rng())
+        losses, grads = self._meta_train_step(
+            sup_batch.to(self.device), qry_batch.to(self.device), self.next_rng(),
+            None if phn_ref is None else phn_ref.to(self.device))
         self.apply_updates(grads)
         return losses

@@ -50,12 +50,14 @@ def _vp_paths(name):
 
 
 def build_mapping(n_encoder, n_decoder, n_postnet, speaker_table,
-                  ge2e_layers=0):
+                  ge2e_layers=0, codebook=None):
     """torch name -> ("params" | "state", path list, transpose?), for a
     FastSpeech2 with these layer counts and, if ``speaker_table``, a
     speaker table, or with ``ge2e_layers`` > 0 a GE2E d-vector network of
     that many LSTM layers (torch's and resemblyzer's names and (4H, in)
-    layout; the JAX tree's ``lstm/layers/k/w_ih`` is (in, 4H))."""
+    layout; the JAX tree's ``lstm/layers/k/w_ih`` is (in, 4H)); with
+    ``codebook`` ("hard" | "soft") the cross-lingual codebook, which the
+    JAX package keeps at the top of ``params`` as ``phn_emb_generator``."""
     m = {"encoder.src_word_emb.weight":
          ("params", ["encoder", "src_word_emb", "table"], False)}
     for stack, n in (("encoder", n_encoder), ("decoder", n_decoder)):
@@ -91,16 +93,28 @@ def build_mapping(n_encoder, n_decoder, n_postnet, speaker_table,
         m["speaker_emb.model.linear.weight"] = (
             "params", ["speaker_emb", "linear", "w"], True)
         m["speaker_emb.model.linear.bias"] = ("params", ["speaker_emb", "linear", "b"], False)
+    if codebook:
+        for bank in ("emb_banks", "att_banks"):
+            m[f"phn_emb_generator.{bank}"] = ("params", ["phn_emb_generator", bank], False)
+    if codebook == "soft":
+        for proj in ("w_qs", "w_ks"):
+            m[f"phn_emb_generator.{proj}.weight"] = (
+                "params", ["phn_emb_generator", proj, "w"], True)
+            m[f"phn_emb_generator.{proj}.bias"] = (
+                "params", ["phn_emb_generator", proj, "b"], False)
     return m
 
 
 def _jax_mapping(params):
     """``build_mapping`` for a JAX FastSpeech2 ``params`` tree."""
     spk = params.get("speaker_emb", {})
+    codebook = params.get("phn_emb_generator")
     return build_mapping(len(params["encoder"]["layers"]),
                          len(params["decoder"]["layers"]),
                          len(params["postnet"]["convs"]), "table" in spk,
-                         len(spk["lstm"]["layers"]) if "lstm" in spk else 0)
+                         len(spk["lstm"]["layers"]) if "lstm" in spk else 0,
+                         None if codebook is None
+                         else "soft" if "w_qs" in codebook else "hard")
 
 
 def _get(tree, path):
@@ -157,7 +171,7 @@ _JAX_KEY_ORDER = {k: i for i, k in enumerate((
     "energy_predictor", "pitch_embedding", "energy_embedding", "pitch_bins",
     "energy_bins", "conv1", "ln1", "conv2", "ln2", "lstm", "linear", "convs", "conv",
     "bn", "w", "b", "scale", "bias", "table", "mean", "var", "w_ih", "w_hh",
-    "b_ih", "b_hh"))}
+    "b_ih", "b_hh", "phn_emb_generator", "emb_banks", "att_banks", "w_qs", "w_ks"))}
 
 
 def _put(tree, path, value):
@@ -179,11 +193,14 @@ def _finish(tree):
 def _fs2_mapping(model):
     spk = model.speaker_emb
     lstm = getattr(getattr(spk, "model", None), "lstm", None)
+    codebook = getattr(model, "phn_emb_generator", None)
     return build_mapping(len(model.encoder.layer_stack),
                          len(model.decoder.layer_stack),
                          len(model.postnet.convolutions),
                          spk is not None and lstm is None,
-                         lstm.n_layers if lstm is not None else 0)
+                         lstm.n_layers if lstm is not None else 0,
+                         None if codebook is None
+                         else "hard" if codebook.attention == "hard" else "soft")
 
 
 def _trees(named, mapping):

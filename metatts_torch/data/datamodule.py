@@ -4,17 +4,21 @@
 Registry mirrors the reference (``lightning/datamodules/__init__.py:6-14``):
   base      -- plain supervised loaders
   baseline  -- flat shuffled train batches, frozen episodic val/test
-  meta      -- episodic train + frozen episodic val/test
+  meta      -- episodic train (cross-lingual episodes with their
+               per-phoneme representations for ``adapt.type == "lang"``)
+               + frozen episodic val/test
 
 The training loaders make numpy's draws in the JAX package's order, so both
 packages yield the same utterances batch for batch from the same seed.
 """
 
 import numpy as np
+import torch
 
 from .collate import collate_batch, collate_episode
 from .dataset import TTSDataset
 from .episodes import EpisodeSampler
+from .lang_episodes import assign_support_query, episode_phoneme_representation
 
 
 class ConcatDataset:
@@ -130,14 +134,47 @@ class MetaDataModule(BaselineDataModule):
 
     def train_episode_batches(self, meta_batch_size):
         """Endless ``collate_episode`` tuples (sup, qry, sup metas, qry
-        metas) of ``meta_batch_size`` episodes each."""
-        if self.acfg["adapt"]["type"] == "lang":
-            raise NotImplementedError(
-                "language episodes (the support/query re-split and phoneme "
-                "representations) are not ported yet: ROADMAP Queue 1 item 11")
+        metas) of ``meta_batch_size`` episodes each.  Cross-lingual episodes
+        (``adapt.type == "lang"``) are first re-split so that the support
+        covers every query phoneme, and the tuple gains a fifth item: the
+        support's per-phoneme representations, (E, vocab, d_feat) on the
+        CPU."""
+        lang = self.acfg["adapt"]["type"] == "lang"
         while True:
             sup, qry = self.train_sampler.sample_meta_batch(meta_batch_size)
-            yield collate_episode(sup, qry, self.max_seq_len)
+            if lang:
+                sup, qry = self._lang_coverage_resplit(sup, qry)
+            batch = collate_episode(sup, qry, self.max_seq_len)
+            if not lang:
+                yield batch
+                continue
+            phn_ref = np.stack([episode_phoneme_representation(ep) for ep in sup])
+            want = self.acfg["adapt"]["phoneme_emb"].get("representation_dim")
+            if want is not None and phn_ref.shape[-1] != want:
+                raise ValueError(
+                    f"adapt.phoneme_emb.representation_dim={want} but the "
+                    f"corpus representations are {phn_ref.shape[-1]}-dim; "
+                    "set representation_dim to match (the built-in "
+                    "featurizer emits n_mel_channels dims)")
+            yield batch + (torch.from_numpy(phn_ref),)
+
+    def _lang_coverage_resplit(self, sup, qry):
+        """Each episode's utterances re-split so that the support covers
+        every query phoneme (``assign_support_query``; reference
+        ``collate.py:252-277``), since the episode's phoneme table comes
+        from the support's representations only.  An episode where that is
+        infeasible keeps the sampler's split."""
+        new_sup, new_qry = [], []
+        for s_ep, q_ep in zip(sup, qry):
+            pool = list(s_ep) + list(q_ep)
+            try:
+                s_idx, q_idx = assign_support_query(
+                    pool, shots=len(s_ep), queries=len(q_ep))
+            except ValueError:
+                s_idx, q_idx = range(len(s_ep)), range(len(s_ep), len(pool))
+            new_sup.append([pool[i] for i in s_idx])
+            new_qry.append([pool[i] for i in q_idx])
+        return new_sup, new_qry
 
 
 DATAMODULES = {

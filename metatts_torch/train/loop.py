@@ -101,8 +101,11 @@ class Trainer:
                 if timer:
                     timer.__enter__()
                 if meta:
-                    sup, qry = next(gen)[:2]
-                    losses = system.train_step(sup, qry)
+                    item = next(gen)
+                    sup, qry = item[:2]
+                    # cross-lingual episodes carry their phoneme representations
+                    losses = (system.train_step(sup, qry) if len(item) < 5
+                              else system.train_step(sup, qry, phn_ref=item[4]))
                 else:
                     batch, _ = next(gen)
                     losses = system.train_step(batch)

@@ -73,12 +73,15 @@ def no_dropout():
         yield
 
 
-def write_corpus(root, n_utts=4, n_mels=8, seed=0):
+def write_corpus(root, n_utts=4, n_mels=8, seed=0, representations=False):
     """A preprocessed corpus as the preprocessor lays it out: metadata
     lines, per-utterance mel / phoneme-level pitch and energy / duration
-    ``.npy`` files, speakers.json and stats.json."""
+    ``.npy`` files (and, with ``representations``, (L, n_mels) per-phoneme
+    representations), speakers.json and stats.json."""
     rng = np.random.RandomState(seed)
-    for sub in ("mel", "pitch", "energy", "duration"):
+    subs = ("mel", "pitch", "energy", "duration") + (
+        ("representation",) if representations else ())
+    for sub in subs:
         os.makedirs(os.path.join(root, sub), exist_ok=True)
     lines = []
     for spk in SPEAKERS:
@@ -89,6 +92,8 @@ def write_corpus(root, n_utts=4, n_mels=8, seed=0):
             arrays = {"mel": rng.randn(int(d.sum()), n_mels).astype(np.float32),
                       "pitch": rng.randn(n).astype(np.float32),
                       "energy": rng.randn(n).astype(np.float32), "duration": d}
+            if representations:
+                arrays["representation"] = rng.randn(n, n_mels).astype(np.float32)
             for kind, a in arrays.items():
                 np.save(os.path.join(root, kind, f"{spk}-{kind}-{base}.npy"), a)
             phones = " ".join(PHONES[i] for i in rng.randint(0, len(PHONES), n))
@@ -210,9 +215,23 @@ def test_train_episode_batches_match_jax(setup):
             assert x.texts.shape[0] == 2
             _assert_batches_equal(x, y)
         assert [m.ids for m in a[2] + a[3]] == [m.ids for m in b[2] + b[3]]
-    acfg["adapt"]["type"] = "lang"
-    with pytest.raises(NotImplementedError, match="item 11"):
-        next(MetaDataModule([setup["pcfg"]], _step_train_cfg(), acfg).train_episode_batches(2))
+    # language episodes, on the same corpus with per-phoneme representations:
+    # the coverage re-split, and the support's phn_ref as a fifth item
+    acfg["adapt"].update(type="lang", phoneme_emb={
+        "type": "codebook", "size": 16, "representation_dim": 8, "attention": {"type": "hard"}})
+    root = os.path.join(setup["root"], "lang_pp")
+    write_corpus(root, representations=True)
+    lang = dict(setup, pcfg=C.deep_merge(setup["pcfg"], {"path": {"preprocessed_path": root}}))
+    dm, jdm = _datamodules(lang, MetaDataModule, JaxMetaDM, acfg, log="lang_log")
+    got, ref = dm.train_episode_batches(2), jdm.train_episode_batches(2)
+    for _ in range(3):
+        a, b = next(got), next(ref)
+        assert len(a) == len(b) == 5
+        for x, y in zip(a[:2], b[:2]):
+            _assert_batches_equal(x, y)
+        assert [m.ids for m in a[2] + a[3]] == [m.ids for m in b[2] + b[3]]
+        assert a[4].shape == (2, 361, 8)
+        np.testing.assert_array_equal(a[4].numpy(), np.asarray(b[4]))
 
 
 # ---------------------------------------------------------- baseline step

@@ -145,3 +145,14 @@ def test_test_stage_modules_are_checked(module):
     """The test stage's modules are among those imported with JAX, flax,
     msgpack and optax blocked above."""
     assert module in _modules()
+
+
+@pytest.mark.parametrize("module", [
+    "metatts_torch.models.phoneme_embedding", "metatts_torch.data.lang_episodes",
+    "metatts_torch.preprocess.prepare_align", "metatts_torch.data.datamodule"])
+def test_lang_slice_modules_are_checked(module):
+    """The cross-lingual slice's modules are among those imported with JAX
+    blocked above, and their files among those searched for its name."""
+    assert module in _modules()
+    path = os.path.join(ROOT, *module.split(".")) + ".py"
+    assert path in set(_port_files())
