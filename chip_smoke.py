@@ -132,6 +132,27 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
               ms per inner step and per evaluation, the adapt + synthesis
               real-time factor, peak memory, the snapshot mode and the
               flash kernels' share of an inner step's device time;
+   eval    -- offline evaluation (``python -m metatts_torch.evaluate``'s
+              functions) of the test stage's result tree and the preprocess
+              corpus's real wavs (4 speakers x 8), all at published widths
+              in fp32: a scratch GE2E verifier (3 x LSTM-256) trained by
+              ``train_ge2e`` on the card for 20 steps on the corpus's
+              partials, 4 speakers a batch, its first 3 losses against the
+              CPU; ``run_matrix``'s eer.txt rows over one mode (the test
+              tree at its FT steps) with three d-vector encoders (a random
+              init at resemblyzer's width, examples/meta_advantage_eer/
+              ge2e_scratch.npz at width 128, the scratch verifier read back
+              from its npz with ``require_weights``), each against the same
+              rows and d-vectors on the CPU (EER/AUC within one pair,
+              d-vectors max abs 1e-4), the real rows finite (a test-tree
+              group of one wav gives NaN rows, as in the JAX package);
+              ``mos_rows`` with MOSNet, MBNet (random weights at their
+              published widths) and wav2vec2-base with a regression head
+              registered beside the spectral proxy, then with the headless
+              wav2vec2 and the proxy; each scorer against the CPU on 3 wavs
+              (rel 1e-4), the headless wav2vec2's hidden states too;
+              seconds a wav of each embedder and scorer (every 4th wav),
+              kernel launches a d-vector, seconds a scratch-GE2E step;
 9. fit     -- training runs at the base configuration on the preprocess
               phase's corpus (its own stats.json): ``Trainer.fit`` of the
               baseline system (config/algorithm/base_emb_vad.yaml,
@@ -195,7 +216,10 @@ It exits with an error and prints no result where no CUDA device is
 available, or where the ``metatts_torch`` package is not beside it.
 """
 
+import contextlib
 import functools
+import glob
+import io
 import json
 import math
 import os
@@ -2844,6 +2868,314 @@ def phase_lang():
     return tuple(counts)
 
 
+# ---------------------------------------------------------------- eval
+
+EVAL_NPZ = os.path.join(HERE, "examples", "meta_advantage_eer", "ge2e_scratch.npz")
+EVAL_GE2E_STEPS = 20          # scratch GE2E steps on the card (a depth cut)
+EVAL_GE2E_SPEAKERS = 4        # a batch's speakers: the corpus has 4 (the default is 8)
+EVAL_GE2E_CHECK = 3           # its first losses held against the CPU
+EVAL_TIMED_EVERY = 4          # every 4th of the 46 wavs timed a wav (a depth cut)
+EVAL_DVEC_TOL = 1e-4          # d-vectors, card vs CPU, max abs
+EVAL_REL_TOL = 1e-4           # scratch losses and scores, card vs CPU, relative
+# wav2vec2-base (facebook/wav2vec2-base's config; convert_wav2vec2_pt's layout)
+W2V2_BASE = dict(conv_stride=[5, 2, 2, 2, 2, 2, 2], num_conv_pos_embeddings=128,
+                 num_conv_pos_embedding_groups=16, num_attention_heads=12,
+                 num_hidden_layers=12)
+W2V2_KERNELS, W2V2_CONV, W2V2_HIDDEN, W2V2_FFN = (10, 3, 3, 3, 3, 2, 2), 512, 768, 3072
+
+
+def _uniform(rng, shape, fan):
+    import numpy as np
+    return (rng.uniform(-1, 1, shape) / np.sqrt(fan)).astype(np.float32)
+
+
+def write_cnn_blstm_npz(path, seed):
+    """Random MOSNet / MBNet mean-net weights at their published widths in
+    the converters' layout (``tools/convert_torch_weights.py``
+    ``convert_mosnet_h5`` / ``convert_mbnet_pt``: HWIO convs of 16-128
+    channels, a Keras-layout BLSTM of 128 over 4 x 128 features, dense
+    256 -> 128 -> 1)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    z, c_in = {}, 1
+    for i in range(12):
+        c_out = (16, 32, 64, 128)[i // 3]
+        z[f"conv{i}.kernel"] = _uniform(rng, (3, 3, c_in, c_out), 9 * c_in)
+        z[f"conv{i}.bias"] = _uniform(rng, (c_out,), 9 * c_in)
+        c_in = c_out
+    for d in ("fwd", "bwd"):
+        z[f"blstm.{d}.kernel"] = _uniform(rng, (512, 512), 512)
+        z[f"blstm.{d}.recurrent"] = _uniform(rng, (128, 512), 128)
+        z[f"blstm.{d}.bias"] = _uniform(rng, (512,), 128)
+    z["dense1.kernel"], z["dense1.bias"] = _uniform(rng, (256, 128), 256), _uniform(rng, (128,), 256)
+    z["frame.kernel"], z["frame.bias"] = _uniform(rng, (128, 1), 128), _uniform(rng, (1,), 128)
+    np.savez(path, **z)
+    return path
+
+
+def write_wav2vec2_npz(path, seed, head):
+    """Random wav2vec2-base weights in ``convert_wav2vec2_pt``'s layout (the
+    config as a JSON entry, WIO convs without bias, GroupNorm on conv 0,
+    (in, out) linears, the positional conv's weight norm folded), with or
+    without a (768, 1) regression head."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    C, H, F, K = W2V2_CONV, W2V2_HIDDEN, W2V2_FFN, W2V2_BASE["num_conv_pos_embeddings"]
+    g = W2V2_BASE["num_conv_pos_embedding_groups"]
+    z = {"config": np.asarray(json.dumps(W2V2_BASE))}
+    c_in = 1
+    for i, k in enumerate(W2V2_KERNELS):
+        z[f"conv{i}.kernel"] = _uniform(rng, (k, c_in, C), k * c_in)
+        c_in = C
+    norms = {"conv0.gn": C, "fp_ln": C, "enc_ln": H}
+    z["proj.kernel"], z["proj.bias"] = _uniform(rng, (C, H), C), _uniform(rng, (H,), C)
+    z["pos_conv.kernel"] = _uniform(rng, (K, H // g, H), K * H // g)
+    z["pos_conv.bias"] = _uniform(rng, (H,), K * H // g)
+    for i in range(W2V2_BASE["num_hidden_layers"]):
+        for nm in ("q", "k", "v", "out"):
+            z[f"layer{i}.attn.{nm}.kernel"] = _uniform(rng, (H, H), H)
+            z[f"layer{i}.attn.{nm}.bias"] = _uniform(rng, (H,), H)
+        z[f"layer{i}.ff_in.kernel"] = _uniform(rng, (H, F), H)
+        z[f"layer{i}.ff_in.bias"] = _uniform(rng, (F,), H)
+        z[f"layer{i}.ff_out.kernel"] = _uniform(rng, (F, H), F)
+        z[f"layer{i}.ff_out.bias"] = _uniform(rng, (H,), F)
+        norms.update({f"layer{i}.ln": H, f"layer{i}.final_ln": H})
+    for name, d in norms.items():
+        z[f"{name}.scale"] = (1 + 0.1 * rng.randn(d)).astype(np.float32)
+        z[f"{name}.bias"] = (0.1 * rng.randn(d)).astype(np.float32)
+    if head:
+        z["head.kernel"], z["head.bias"] = _uniform(rng, (H, 1), H), _uniform(rng, (1,), H)
+    np.savez(path, **z)
+    return path
+
+
+def _pair_tolerance(card_cache, cpu_cache):
+    """The EER/AUC tolerance of the card's rows against the CPU's, from the
+    real speakers' d-vectors both runs cached: one pair's step, 1 / min(#same
+    pairs, #different pairs), for each pair the card's rounding can reorder
+    against a pair of the other class (a score within twice the largest
+    card-vs-CPU score gap of one of the other class), plus one.  Where no
+    pair is that close this is one pair's step.  -> (tolerance, score gap,
+    pairs that can reorder, pairs)."""
+    import numpy as np
+    from metatts_torch.evaluation.similarity import pair_similarity
+
+    def groups(cache):
+        return {os.path.basename(f)[len("real_"):-len("_dvector.npy")]: np.load(f)
+                for f in sorted(glob.glob(os.path.join(cache, "real_*_dvector.npy")))}
+    (s_card, d_card), (s_cpu, d_cpu) = (pair_similarity(groups(c))
+                                        for c in (card_cache, cpu_cache))
+    gap = max(np.abs(s_card - s_cpu).max(), np.abs(d_card - d_cpu).max())
+
+    def near(a, b):
+        b = np.sort(b)
+        lo = np.searchsorted(b, a - 2 * gap, side="left")
+        return int((np.searchsorted(b, a + 2 * gap, side="right") > lo).sum())
+    k = near(s_cpu, d_cpu) + near(d_cpu, s_cpu)
+    n = min(len(s_cpu), len(d_cpu))
+    return (k + 1) / n, float(gap), k, len(s_cpu) + len(d_cpu)
+
+
+def _rows_close(card, cpu, tol, tag):
+    """eer.txt rows of the card against the CPU's: the same labels, EER /
+    AUC rows within ``tol`` (``_pair_tolerance``), centroid similarities
+    within two units of their 4th decimal, NaN where the other is NaN."""
+    if [r[0] for r in card] != [r[0] for r in cpu]:
+        raise AssertionError(f"[eval] {tag}: labels {card} vs {cpu}")
+    worst = 0.0
+    for (label, a), (_, b) in zip(card, cpu):
+        a, b = float(a), float(b)
+        if math.isnan(a) or math.isnan(b):
+            if not (math.isnan(a) and math.isnan(b)):
+                raise AssertionError(f"[eval] {tag}: {label} {a} vs {b}")
+            continue
+        row_tol = 2e-4 if "_centroid" in label else tol
+        worst = max(worst, abs(a - b))
+        if abs(a - b) > row_tol:
+            raise AssertionError(f"[eval] {tag}: {label} card {a} vs CPU {b} "
+                                 f"(tolerance {row_tol:g})")
+    return worst
+
+
+def phase_eval(corpus):
+    """Offline evaluation of the test phase's result tree and the corpus's
+    real wavs through ``python -m metatts_torch.evaluate``'s functions; see
+    the module docstring."""
+    import tempfile
+    import warnings
+    import numpy as np
+    import torch
+    from metatts_torch.evaluate import discover_ft_steps, mos_rows, run_matrix
+    from metatts_torch.evaluation import mos as M
+    from metatts_torch.evaluation.dvector import DVectorEncoder
+    from metatts_torch.evaluation.ge2e_scratch import (save_ge2e_npz, train_ge2e,
+                                                       utterance_partial)
+    from metatts_torch.evaluation.mbnet import MBNetMean
+    from metatts_torch.evaluation.mosnet import MOSNet
+    from metatts_torch.evaluation.wav2vec2 import Wav2Vec2Scorer, encode
+    from metatts_torch.preprocess.audio_io import load_wav
+
+    root = corpus[0]
+    card = card_line()
+    real_dir = os.path.join(root, "raw", "train")
+    tree = os.path.join(root, "test_stage", "result", "seq")
+    descs = glob.glob(os.path.join(root, "test_stage", "log", "test_descriptions.json"))
+    ft_steps = discover_ft_steps(tree, "step_last")
+    real = sorted(glob.glob(os.path.join(real_dir, "*", "*.wav")))
+    synth = sorted(glob.glob(os.path.join(tree, "audio", "Testing", "step_last", "*", "*.wav")))
+    if not (len(real) == PP_SPEAKERS * PP_UTTERANCES and synth and descs and ft_steps):
+        raise AssertionError(f"[eval] inputs: {len(real)} real wavs, {len(synth)} test wavs, "
+                             f"descriptions {descs}, FT steps {ft_steps}")
+    matrix = {"corpus": "smoke", "real_dir": real_dir, "n_sample": PP_UTTERANCES,
+              "step_list": ["step_last"], "ft_step_list": ft_steps,
+              "modes": {"seq": {"dir": tree, "descriptions": descs[0]}}}
+    wavs = [load_wav(f) for f in real + synth]
+    timed = wavs[::EVAL_TIMED_EVERY]
+    check = [load_wav(f) for f in (real[0], synth[0], synth[-1])]
+    work = tempfile.mkdtemp(prefix="eval_smoke_")
+    try:
+        # the scratch GE2E, trained on the card on the corpus's partials
+        by_spk = {}
+        for f in real:
+            by_spk.setdefault(os.path.basename(os.path.dirname(f)), []).append(
+                utterance_partial(*load_wav(f)))
+        partials = {s: np.stack(p) for s, p in by_spk.items()}
+        kw = dict(n_speakers_per_batch=EVAL_GE2E_SPEAKERS, m_utts_per_speaker=4, seed=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, trace = train_ge2e(partials, steps=EVAL_GE2E_STEPS, device="cuda", **kw)
+        torch.cuda.synchronize()
+        ge2e_s = (time.perf_counter() - t0) / EVAL_GE2E_STEPS
+        _, trace_cpu = train_ge2e(partials, steps=EVAL_GE2E_CHECK, device="cpu", **kw)
+        gaps = [abs(a - b) / abs(b) for a, b in zip(trace, trace_cpu)]
+        scratch = save_ge2e_npz(params, os.path.join(work, "ge2e_scratch_smoke.npz"))
+        print(f"[eval] scratch GE2E at resemblyzer's width (3 x LSTM-256, 40 mel) on the "
+              f"corpus's {len(real)} partials, {EVAL_GE2E_SPEAKERS} speakers x 4 a batch: "
+              f"{EVAL_GE2E_STEPS} steps, {ge2e_s:.4f} s a step ({card}); loss "
+              f"{trace[0]:.4f} -> {min(trace):.4f} (best); first {EVAL_GE2E_CHECK} losses "
+              f"card vs CPU rel {max(gaps):.3e} (tolerance {EVAL_REL_TOL:g})")
+        if not (len(trace) == EVAL_GE2E_STEPS and all(map(math.isfinite, trace))
+                and len(gaps) == EVAL_GE2E_CHECK and max(gaps) < EVAL_REL_TOL):
+            raise AssertionError(f"[eval] scratch GE2E: card {trace[:EVAL_GE2E_CHECK]} vs "
+                                 f"CPU {trace_cpu}")
+
+        # d-vectors and eer.txt rows, three encoders
+        for tag, weights in (("random", None), ("ge2e_scratch.npz", EVAL_NPZ),
+                             ("scratch", scratch)):
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")     # the random init's warning
+                enc = DVectorEncoder(weights, require_weights=weights is not None,
+                                     device="cuda")
+                enc_cpu = DVectorEncoder(weights, device="cpu")
+                t0 = time.perf_counter()
+                rows = run_matrix(matrix, out=os.path.join(work, tag), dvector_weights=weights,
+                                  device="cuda")
+                matrix_s = time.perf_counter() - t0
+                with contextlib.redirect_stdout(io.StringIO()):    # printed by the card's
+                    rows_cpu = run_matrix(matrix, out=os.path.join(work, tag + "_cpu"),
+                                          dvector_weights=weights, device="cpu")
+            enc.embed_utterance(*wavs[0])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for w in timed:
+                enc.embed_utterance(*w)
+            dvec_s = (time.perf_counter() - t0) / len(timed)
+            vecs = [enc.embed_utterance(*w) for w in wavs[:4] + wavs[-2:]]
+            _, events, _ = device_profile(lambda: enc.embed_utterance(*wavs[0]))
+            launches = sum(e.count for e in events if not e.key.startswith(("Memcpy", "Memset")))
+            gap = max(float(np.abs(enc_cpu.embed_utterance(*w) - v).max())
+                      for w, v in zip(wavs[:4] + wavs[-2:], vecs))
+            tol, score_gap, n_near, n_pairs = _pair_tolerance(
+                os.path.join(work, tag, "cache"), os.path.join(work, tag + "_cpu", "cache"))
+            worst = _rows_close(rows, rows_cpu, tol, tag)
+            real_row = [float(v) for label, v in rows if label == "real"]
+            nan_rows = [label for label, v in rows if math.isnan(float(v))]
+            width = enc.net.linear.weight.shape[0]
+            print(f"[eval] d-vectors, {tag} GE2E (embed {width}, calibrated "
+                  f"{enc.calibrated}): {dvec_s:.4f} s a wav over {len(timed)} wavs, "
+                  f"{launches} kernel launches a wav ({wavs[0][0].size / wavs[0][1]:.2f} s of "
+                  f"audio), "
+                  f"run_matrix {matrix_s:.2f} s ({card}); card vs CPU d-vectors max abs "
+                  f"{gap:.3e} (tolerance {EVAL_DVEC_TOL:g}), pair scores {score_gap:.3e}; "
+                  f"rows worst {worst:.4g} (EER tolerance {tol:.4g}: {n_near} of {n_pairs} "
+                  f"pairs within twice that score gap of a pair of the other class, "
+                  f"plus one); real EER {real_row}")
+            if not (gap < EVAL_DVEC_TOL and len(real_row) == 1
+                    and math.isfinite(real_row[0]) and len(vecs[0]) == width
+                    and all(np.isfinite(v).all() for v in vecs)):
+                raise AssertionError(f"[eval] {tag}: d-vectors {gap}, rows {rows}")
+            if nan_rows:
+                print(f"[eval]   NaN rows (a speaker group of the test tree holds one wav, so "
+                      f"it forms no same-speaker pair, as in the JAX package; not a "
+                      f"failure): {', '.join(nan_rows)}")
+
+        # MOS scorers at their published widths on random weights
+        paths = {"mosnet": write_cnn_blstm_npz(os.path.join(work, "mosnet.npz"), 1),
+                 "mbnet": write_cnn_blstm_npz(os.path.join(work, "mbnet.npz"), 2),
+                 "w2v2_head": write_wav2vec2_npz(os.path.join(work, "w2v2_head.npz"), 3, True),
+                 "w2v2": write_wav2vec2_npz(os.path.join(work, "w2v2.npz"), 3, False)}
+        for w2v2, want in (("w2v2_head", ["mbnet", "mosnet", "spectral_proxy", "wav2vec2"]),
+                           ("w2v2", ["spectral_proxy", "wav2vec2"])):
+            if w2v2 == "w2v2":      # the headless wav2vec2 again, without the CNN-BLSTMs
+                for name in ("mbnet", "mosnet"):
+                    M._SCORERS.pop(name)
+            t0 = time.perf_counter()
+            rows = mos_rows(real_dir, tree, "step_last", PP_UTTERANCES * PP_SPEAKERS,
+                            mosnet_weights=paths["mosnet"] if len(want) == 4 else None,
+                            mbnet_weights=paths["mbnet"] if len(want) == 4 else None,
+                            wav2vec2_weights=paths[w2v2], out_dir=None, device="cuda")
+            rows_s = time.perf_counter() - t0
+            names = M.available_scorers()
+            vals = [float(v.split()[0]) for _, v in rows]
+            if names != want or len(rows) != len(names) * (2 + len(ft_steps)) or not all(
+                    map(math.isfinite, vals)):
+                raise AssertionError(f"[eval] mos_rows ({w2v2}): {names}, {rows}")
+            print(f"[eval] mos_rows with wav2vec2 {'with' if w2v2 == 'w2v2_head' else 'without'}"
+                  f" a head: {len(rows)} rows in {rows_s:.2f} s ({card}): "
+                  + "; ".join(f"{label} {v}" for label, v in rows))
+        scorers = {"mosnet": lambda d: MOSNet(paths["mosnet"], device=d),
+                   "mbnet": lambda d: MBNetMean(paths["mbnet"], device=d),
+                   "wav2vec2 (head)": lambda d: Wav2Vec2Scorer(paths["w2v2_head"], device=d),
+                   "wav2vec2 (proxy)": lambda d: Wav2Vec2Scorer(paths["w2v2"], device=d)}
+        audio_s = sum(w.size / sr for w, sr in timed) / len(timed)
+        for name, make in scorers.items():
+            scorer, scorer_cpu = make("cuda"), make("cpu")
+            scorer.score(*wavs[0])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for w in timed:
+                scorer.score(*w)
+            per_wav = (time.perf_counter() - t0) / len(timed)
+            got = [scorer.score(*w) for w in check]
+            want = [scorer_cpu.score(*w) for w in check]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+            print(f"[eval] {name}: {per_wav:.4f} s a wav over {len(timed)} wavs (mean "
+                  f"{audio_s:.2f} s of audio; {card}); card vs CPU on {len(check)} wavs rel "
+                  f"{rel:.3e} (tolerance {EVAL_REL_TOL:g}); scores {[f'{g:.5f}' for g in got]}")
+            if not (rel < EVAL_REL_TOL and all(map(math.isfinite, got))):
+                raise AssertionError(f"[eval] {name}: card {got} vs CPU {want}")
+            if name == "wav2vec2 (proxy)":
+                # the norm proxy saturates at 5 (the last LayerNorm's output
+                # norm is ~sqrt(768)), so hold the hidden states themselves
+                x = torch.from_numpy(np.asarray(check[0][0][None], np.float32))
+                with torch.no_grad():
+                    h = encode(scorer.params, x.to(scorer.device)).cpu()
+                    h_cpu = encode(scorer_cpu.params, x)
+                h_rel = float((h - h_cpu).abs().max() / h_cpu.abs().max())
+                print(f"[eval]   wav2vec2-base hidden states {tuple(h.shape)}, card vs CPU "
+                      f"rel {h_rel:.3e} (tolerance {EVAL_REL_TOL:g})")
+                if not h_rel < EVAL_REL_TOL:
+                    raise AssertionError(f"[eval] wav2vec2 hidden states rel {h_rel}")
+            del scorer, scorer_cpu
+        t0 = time.perf_counter()
+        for w in timed:
+            M.score("spectral_proxy", *w)
+        print(f"[eval] spectral_proxy (host numpy): "
+              f"{(time.perf_counter() - t0) / len(timed):.4f} s a wav over {len(timed)} wavs")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def with_time(phase):
     """One phase, with its wall time."""
     t0 = time.perf_counter()
@@ -2886,6 +3218,7 @@ def main():
         imaml_launches = with_time(phase_imaml)
         with_time(phase_hvp_fwd)
         test_launches = with_time(functools.partial(phase_test, corpus))
+        with_time(functools.partial(phase_eval, corpus))
         fit_launches = with_time(functools.partial(phase_fit, corpus))
         dvec_launches = with_time(functools.partial(phase_dvec, corpus))
         lang_launches = with_time(phase_lang)

@@ -142,6 +142,21 @@ def fft_block_state_dict_from_jax(p):
             for name, (path, t) in _mha_paths("stack", 0).items()}
 
 
+def ge2e_state_dict_from_jax(p):
+    """A GE2E network's tree (``lstm/layers/k/{w_ih, w_hh, b_ih, b_hh}``,
+    ``linear/{w, b}``: the evaluation d-vector encoder's and the scratch
+    verifier's ``net``) -> the ``GE2E`` module's state dict, whose names and
+    (4H, in) layout are also resemblyzer's npz layout."""
+    sd = {}
+    for k, layer in enumerate(p["lstm"]["layers"]):
+        for name, key, t in (("weight_ih", "w_ih", True), ("weight_hh", "w_hh", True),
+                             ("bias_ih", "b_ih", False), ("bias_hh", "b_hh", False)):
+            sd[f"lstm.{name}_l{k}"] = _tensor(layer[key], t)
+    sd["linear.weight"] = _tensor(p["linear"]["w"], True)
+    sd["linear.bias"] = _tensor(p["linear"]["b"])
+    return sd
+
+
 def tree_state_dict(tree, prefix=""):
     """Nested dicts/lists with ``w`` / ``b`` conv leaves (the vocoder trees)
     -> flat state dict with ``weight`` / ``bias`` names."""

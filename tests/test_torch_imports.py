@@ -156,3 +156,27 @@ def test_lang_slice_modules_are_checked(module):
     assert module in _modules()
     path = os.path.join(ROOT, *module.split(".")) + ".py"
     assert path in set(_port_files())
+
+
+@pytest.mark.parametrize("module", [
+    "metatts_torch.evaluation", "metatts_torch.evaluation.similarity",
+    "metatts_torch.evaluation.verification", "metatts_torch.evaluation.mos",
+    "metatts_torch.evaluation.dvector", "metatts_torch.evaluation.harness",
+    "metatts_torch.evaluation.ge2e_scratch", "metatts_torch.evaluation.mosnet",
+    "metatts_torch.evaluation.mbnet", "metatts_torch.evaluation.wav2vec2",
+    "metatts_torch.evaluation.visualize", "metatts_torch.evaluation.figures",
+    "metatts_torch.evaluate"])
+def test_evaluation_slice_modules_are_checked(module):
+    """The evaluation slice's modules are among those imported with JAX
+    blocked above, and their files among those searched for its name; none
+    imports matplotlib, sklearn or yaml at module level (the card machine
+    has neither matplotlib nor sklearn, and may lack PyYAML)."""
+    assert module in _modules()
+    base = os.path.join(ROOT, *module.split("."))
+    path = base + ".py" if os.path.exists(base + ".py") else os.path.join(base, "__init__.py")
+    assert path in set(_port_files())
+    with open(path) as f:
+        body = ast.parse(f.read()).body
+    top = [a.name for n in body if isinstance(n, ast.Import) for a in n.names]
+    top += [n.module for n in body if isinstance(n, ast.ImportFrom) and n.module]
+    assert not [n for n in top if n.split(".")[0] in ("matplotlib", "sklearn", "yaml")]
