@@ -209,7 +209,38 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
               without the codebook; ``python -m metatts_torch -s train``'s
               entry point for 2 steps on the corpus, its ``last.ckpt`` read
               back with the codebook and its Adam moments bit for bit;
-12. report -- one JSON line of kernels, then the card's name and power
+12. synth_eer -- the meta-vs-baseline EER experiment
+              (``metatts_torch.experiments.meta_eer.run_eer_experiment``) at
+              the JAX run's widths (examples/meta_advantage_eer/
+              results.json: hidden 32, 1 + 1 layers, 8 mels, 4 episodes of
+              5 + 5, 5 inner steps), cut in depth (4 outer steps, 8 + 2
+              speakers, 1 episode a held-out speaker, saving steps [5, 10],
+              4 queries, 10 GE2E steps, 4 enrolment utterances, 8
+              Griffin-Lim iterations; the duration bias at log 3): first the
+              first outer step of each arm, fp32 with dropout off under
+              deterministic algorithms, held against the same step on the
+              CPU from the same weights (gradient rel L2 < 1e-4, with
+              PyTorch's own CUDA convolutions; cuDNN's gap printed); then
+              the run, with exact flash launches per meta step, baseline
+              step, test task and synthesis forward and for the whole run,
+              the result tree, ``eer.txt``'s row labels and
+              ``results.json``'s keys those of the JAX script, every value
+              finite; then one step of each arm and a test task with
+              synthesis at hidden 256 (2 heads, 80 mels): flash at d_k 128,
+              every evaluation and synthesis on the fused block, counted;
+              ms per step of each arm, per test task and step, per
+              synthesis forward and Griffin-Lim call, seconds per stage;
+13. ddp    -- two ranks over gloo on the one card (``chip_smoke.py
+              --ddp-rank <r> <store> <out>``; NCCL refuses two ranks on one
+              device) against one process: a meta and an iMAML step of 2
+              episodes and a baseline step on a batch of 4 whose halves hold
+              different numbers of valid frames, at the base width in fp32
+              under deterministic algorithms, with cuDNN's convolutions and
+              with PyTorch's own: losses rtol 2e-4 and parameters atol 2e-4
+              both ways, the optimizer's gradient rel L2 2e-4 with
+              PyTorch's own, both ranks' parameters bit for bit, 10 + 10
+              flash launches a rank a step;
+14. report -- one JSON line of kernels, then the card's name and power
               limit, then the result line.
 
 It exits with an error and prints no result where no CUDA device is
@@ -3176,6 +3207,444 @@ def phase_eval(corpus):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- synth_eer
+
+# examples/meta_advantage_eer/results.json's config (the JAX run: hidden 32,
+# 1 layer, 8 mels, 4 episodes of 5 + 5, 5 inner steps at lr 1e-3), cut in
+# depth (PERF.md section 4)
+EER_RUN = dict(outer_steps=4, n_train=8, n_test=2, n_mels=8, hidden=32, layers=1,
+               saving_steps=(5, 10), episodes_per_speaker=1, eval_queries=4,
+               ge2e_hidden=128, ge2e_steps=10, enroll_utts=4, gl_iters=8)
+EER_META_BATCH = 4
+EER_WIDE = dict(hidden=256, n_mels=80)    # one step of each arm and a test task
+JAX_EER = os.path.join(HERE, "examples", "meta_advantage_eer")
+
+
+def _launch_counts():
+    from metatts_torch.ops import attention as A
+    from metatts_torch.ops.fftblock import fused_fft_block
+    return (A.flash_attention_fwd.launches, A.flash_attention_bwd.launches,
+            fused_fft_block.launches)
+
+
+@contextlib.contextmanager
+def _instrumented(targets, log):
+    """Within the block, each ``(owner, attribute, tag)`` of ``targets``
+    appends ``(seconds, (flash fwd, flash bwd, fused) launches)`` of every
+    call to ``log[tag]``, synchronised on both sides."""
+    import torch
+    saved = []
+    for owner, name, tag in targets:
+        fn = getattr(owner, name)
+
+        def run(*a, _fn=fn, _tag=tag, **kw):
+            torch.cuda.synchronize()
+            c0, t0 = _launch_counts(), time.perf_counter()
+            out = _fn(*a, **kw)
+            torch.cuda.synchronize()
+            log.setdefault(_tag, []).append(
+                (time.perf_counter() - t0, tuple(b - a for a, b in zip(c0, _launch_counts()))))
+            return out
+        saved.append((owner, name, fn))
+        setattr(owner, name, run)
+    try:
+        yield log
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def _eer_labels(path):
+    with open(path) as f:
+        return [line.split()[0] for line in f if len(line.split()) == 2]
+
+
+def _first_step_gap(kind, mcfg_args, cudnn):
+    """The rel L2 gap between the first outer step's gradient of arm
+    ``kind`` on the card (cuDNN's convolutions, or PyTorch's own where
+    ``cudnn`` is false) and on the CPU, from the same weights and draw, in
+    fp32, dropout off, deterministic algorithms; and both total losses."""
+    import copy
+    import numpy as np
+    import torch
+    from metatts_torch.algorithms import get_system
+    from metatts_torch.data.synthetic import STATS, SyntheticVoices
+    from metatts_torch.experiments.meta_advantage import _configs
+    from metatts_torch.models import nn as L
+    n_spk = EER_RUN["n_train"] + EER_RUN["n_test"]
+    pcfg, mcfg, tcfg, acfg = _configs(*mcfg_args, hidden=EER_RUN["hidden"])
+    acfg["type"] = kind
+    corpus = SyntheticVoices(n_spk, n_mels=EER_RUN["n_mels"], seed=0)
+    rng = np.random.RandomState(1)     # run_experiment's data stream, seed 0
+    spk = rng.choice(range(EER_RUN["n_train"]), size=EER_META_BATCH, replace=False)
+    sup, qry = corpus.meta_batch(spk, 5, 5, rng)
+    batch = corpus.batch(list(rng.choice(range(EER_RUN["n_train"]), size=EER_META_BATCH * 10)),
+                         rng)
+    out = []
+    dropout, L.dropout = L.dropout, lambda x, rate, train, generator: x
+    try:
+        for device in ("cuda", "cpu"):
+            s = get_system(kind)(pcfg, copy.deepcopy(mcfg), tcfg, copy.deepcopy(acfg),
+                                 stats=STATS, n_speakers=n_spk, seed=7, device=device)
+            seed = s.next_rng()
+
+            def step():
+                if kind == "meta":
+                    return s._meta_train_step(sup.to(device), qry.to(device), seed)
+                s.model.train()
+                params = s.params
+                total, losses = s._supervised_loss(params, batch.to(device), seed, True,
+                                                   update_bn_state=True)
+                return losses, dict(zip(params, torch.autograd.grad(
+                    total, list(params.values()), allow_unused=True)))
+            torch.backends.cudnn.enabled = cudnn or device == "cpu"
+            try:
+                losses, g = _deterministic(step)
+            finally:
+                torch.backends.cudnn.enabled = True
+            out.append((float(losses.total),
+                        {n: v.detach().cpu() for n, v in g.items() if v is not None}))
+    finally:
+        L.dropout = dropout
+    return rel_l2(out[0][1], out[1][1]), out[0][0], out[1][0]
+
+
+def phase_synth_eer():
+    """The meta-vs-baseline EER experiment on the card; see the module
+    docstring."""
+    import copy
+    import tempfile
+    import numpy as np
+    import torch
+    from metatts_torch.algorithms import get_system
+    from metatts_torch.algorithms.base import System
+    from metatts_torch.algorithms.baseline import BaselineSystem
+    from metatts_torch.algorithms.meta import MetaSystem
+    from metatts_torch.data.synthetic import STATS, SyntheticMelVocoder, SyntheticVoices
+    from metatts_torch.experiments import meta_advantage as MA
+    from metatts_torch.experiments import meta_eer as ME
+    from metatts_torch.experiments.meta_advantage import _configs
+
+    card = card_line()
+    nl, n_dec = 2 * EER_RUN["layers"], EER_RUN["layers"]
+    steps, rows = max(EER_RUN["saving_steps"]), len(EER_RUN["saving_steps"]) + 1
+    mcfg_args = (EER_RUN["n_mels"], 5, 1e-3, 1e-3, EER_META_BATCH, 5, 5, EER_RUN["saving_steps"])
+
+    # the first outer step of each arm, card against CPU, held with
+    # PyTorch's own CUDA convolutions: at this init the meta-gradient moves
+    # by 4e-5 with the CPU's thread count alone, and by 6.3e-4 where cuDNN
+    # picks its fp32 convolution algorithms (PERF.md section 6), which is
+    # printed beside it
+    for kind in ("meta", "baseline"):
+        gap, card_loss, cpu_loss = _first_step_gap(kind, mcfg_args, cudnn=False)
+        gap_cudnn = _first_step_gap(kind, mcfg_args, cudnn=True)[0]
+        print(f"[synth_eer] first {kind} step at the JAX run's width, fp32, dropout off, "
+              f"deterministic algorithms: gradient card vs CPU rel L2 {gap:.3e} (tolerance "
+              f"{META_GRAD_TOL_F32:g}; {gap_cudnn:.3e} with cuDNN's convolutions, not held); "
+              f"total loss {card_loss:.7f} vs {cpu_loss:.7f}")
+        if not (gap < META_GRAD_TOL_F32
+                and abs(card_loss - cpu_loss) <= META_GRAD_TOL_F32 * abs(cpu_loss)):
+            raise AssertionError(f"the first {kind} step on the card disagrees with the CPU")
+
+    # the main path: the whole experiment at the cut depth, counted
+    work = tempfile.mkdtemp(prefix="synth_eer_smoke_")
+    log = {}
+    targets = [(MetaSystem, "train_step", "meta"), (BaselineSystem, "train_step", "baseline"),
+               (System, "test_adapt", "test_task"), (ME, "_synthesize", "synth"),
+               (SyntheticMelVocoder, "__call__", "vocoder")]
+    try:
+        _flash_zero()
+        from metatts_torch.ops.fftblock import fused_fft_block
+        fused_fft_block.launches = 0
+        t0 = time.perf_counter()
+        get_system_ = MA.get_system
+
+        def seeded(kind):
+            # a duration bias of log 3 (~2 frames a phone): after 4 outer
+            # steps the predictor gives 0 frames, an empty wav, which has no
+            # d-vector
+            def build(*a, **kw):
+                s = get_system_(kind)(*a, **kw)
+                with torch.no_grad():
+                    s.model.variance_adaptor.duration_predictor.linear_layer.bias.fill_(
+                        math.log(3.0))
+                return s
+            return build
+        MA.get_system = seeded
+        try:
+            with _instrumented(targets, log):
+                result = ME.run_eer_experiment(out_dir=work, device="cuda", verbose=True,
+                                               meta_batch=EER_META_BATCH, **EER_RUN)
+        finally:
+            MA.get_system = get_system_
+        wall = time.perf_counter() - t0
+        total = _launch_counts()
+        with open(os.path.join(JAX_EER, "results.json")) as f:
+            jax_result = json.load(f)
+        with open(os.path.join(work, "loss_results.json")) as f:
+            traces = json.load(f)["traces"]
+        with open(os.path.join(work, "timing.json")) as f:
+            stages = json.load(f)
+        fts = {str(ft) for ft in (0,) + tuple(EER_RUN["saving_steps"])}
+        want_labels = [lab for lab in _eer_labels(os.path.join(JAX_EER, "eval", "eer.txt"))
+                       if "FTstep" not in lab or lab.split("FTstep")[1].split("_")[0] in fts]
+        got_labels = _eer_labels(os.path.join(work, "eval", "eer.txt"))
+        values = [result["real_eer"]] + list(result["recon_eer"].values()) + [
+            v for t in result["eer_table"].values() for v in t.values()] + [
+            d["mean"] for s in result["loss_summary"].values() for d in s.values()]
+        tree = [os.path.join(work, "result", arm, "audio", "Testing", "step_last",
+                             f"test_{i:03d}", f"qry{j:02d}.{tag}.wav")
+                for arm in ("meta", "baseline") for i in range(EER_RUN["n_test"])
+                for j in range(EER_RUN["eval_queries"])
+                for tag in ["recon"] + [f"step_last-FTstep_{ft}.synth"
+                                        for ft in (0,) + EER_RUN["saving_steps"]]]
+        tree += [os.path.join(work, n) for n in (
+            "ckpt_meta.msgpack", "ckpt_baseline.msgpack", "ge2e_scratch.npz", "matrix.yaml",
+            os.path.join("log", "meta", "test_descriptions.json"),
+            os.path.join("log", "baseline", "test_descriptions.json"))]
+        missing = [p for p in tree if not os.path.exists(p)]
+        if not (result.keys() == jax_result.keys()
+                and result["config"].keys() == jax_result["config"].keys()
+                and got_labels == want_labels and not missing
+                and all(v is not None and math.isfinite(v) for v in values)):
+            raise AssertionError(f"[synth_eer] keys {sorted(result)}, labels {got_labels}, "
+                                 f"missing {missing[:4]}, values {values}")
+
+        # launches: every call of each kind, then the whole run
+        expect = {"meta": (EER_META_BATCH * nl, EER_META_BATCH * nl, 0),
+                  "baseline": (nl, nl, 0),
+                  "test_task": (nl * steps + nl * rows, n_dec * steps, 0),
+                  "synth": (nl, 0, 0)}
+        for tag, want in expect.items():
+            got = {c for _, c in log[tag]}
+            if got != {want}:
+                raise AssertionError(f"[synth_eer] {tag} launches {got}, expected {want}")
+        probes = sum(len(traces[f"{arm}_plain"]) for arm in ("meta", "baseline"))
+        summed = [sum(c[i] for tag in expect for _, c in log[tag]) + (probes * nl if i == 0 else 0)
+                  for i in range(3)]
+        if list(total) != summed:
+            raise AssertionError(f"[synth_eer] run launches {total}, the calls' {summed}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    mean = lambda tag: 1e3 * sum(t for t, _ in log[tag]) / len(log[tag])
+    n_wavs = sum(1 for _ in log["vocoder"])
+    print(f"[synth_eer] run_eer_experiment at the JAX run's widths ({EER_RUN}), {wall:.1f} s "
+          f"({card}): meta step {mean('meta'):.1f} ms ({len(log['meta'])} steps, flash "
+          f"{log['meta'][0][1][:2]} a step), baseline step {mean('baseline'):.1f} ms "
+          f"(flash {log['baseline'][0][1][:2]}), test task {mean('test_task'):.1f} ms "
+          f"({steps} steps: {mean('test_task') / steps:.2f} ms a step with its "
+          f"{rows} evaluations; flash {log['test_task'][0][1][:2]}), a synthesis forward "
+          f"{mean('synth'):.2f} ms, a vocoder call {mean('vocoder'):.1f} ms "
+          f"({n_wavs} calls); run launches flash {total[0]} + {total[1]}, fused {total[2]}")
+    print(f"[synth_eer] stage seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in stages.items()))
+    print(f"[synth_eer] EER at the cut depth (not a result): "
+          + "; ".join(f"{arm} " + " ".join(f"{ft}:{v:.4f}" for ft, v in t.items())
+                      for arm, t in result["eer_table"].items())
+          + f"; real {result['real_eer']:.4f}")
+    counts = list(total)
+
+    # one step of each arm and one test task with synthesis at hidden 256,
+    # 80 mels: flash at d_k 128, every evaluation and synthesis fused
+    wide_args = (EER_WIDE["n_mels"],) + mcfg_args[1:]
+    pcfg, mcfg, tcfg, acfg = _configs(*wide_args, hidden=EER_WIDE["hidden"])
+    corpus = SyntheticVoices(10, n_mels=EER_WIDE["n_mels"], seed=0)
+    rng = np.random.RandomState(1)
+    sup, qry = corpus.meta_batch(rng.choice(range(8), size=EER_META_BATCH, replace=False),
+                                 5, 5, rng, "cuda")
+    batch = corpus.batch(list(rng.choice(range(8), size=EER_META_BATCH * 10)), rng, "cuda")
+    wide_log = {}
+    work = tempfile.mkdtemp(prefix="synth_eer_wide_")
+    try:
+        systems = {}
+        for kind in ("meta", "baseline"):
+            a = dict(acfg, type=kind)
+            systems[kind] = get_system(kind)(pcfg, copy.deepcopy(mcfg), tcfg, a, stats=STATS,
+                                             n_speakers=10, seed=7, device="cuda")
+        with torch.no_grad():   # random init predicts ~0 frames, as in _engine
+            systems["baseline"].model.variance_adaptor.duration_predictor.linear_layer.bias.fill_(2.0)
+        voc = SyntheticMelVocoder(n_mels=EER_WIDE["n_mels"], n_iters=EER_RUN["gl_iters"],
+                                  device="cuda")
+        episode = corpus.episode(8, 5, EER_RUN["eval_queries"], rng, "cuda")
+        with _instrumented(targets, wide_log):
+            systems["meta"].train_step(sup, qry)      # the first step: lazy initialisation
+            systems["meta"].train_step(sup, qry)
+            systems["baseline"].train_step(batch)
+            systems["baseline"].train_step(batch)
+            ME._synthesize_result_tree(systems["baseline"], voc, [episode], work,
+                                       os.path.join(work, "log"), [8], verbose=False)
+        wavs = glob.glob(os.path.join(work, "audio", "Testing", "step_last", "test_000", "*.wav"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    expect = {"meta": (EER_META_BATCH * nl, EER_META_BATCH * nl, 0), "baseline": (nl, nl, 0),
+              "test_task": (nl * steps, n_dec * steps, nl * rows), "synth": (0, 0, nl)}
+    for tag, want in expect.items():
+        got = {c for _, c in wide_log[tag]}
+        if got != {want}:
+            raise AssertionError(f"[synth_eer] hidden 256: {tag} launches {got}, expected {want}")
+    if len(wavs) != EER_RUN["eval_queries"] * (rows + 1):
+        raise AssertionError(f"[synth_eer] hidden 256: {len(wavs)} wavs")
+    wide_counts = [sum(c[i] for tag in expect for _, c in wide_log[tag]) for i in range(3)]
+    print(f"[synth_eer] hidden 256, 2 heads, 80 mels ({card}): meta step "
+          f"{1e3 * wide_log['meta'][1][0]:.1f} ms (first {1e3 * wide_log['meta'][0][0]:.1f}), "
+          f"baseline step {1e3 * wide_log['baseline'][1][0]:.1f} ms, test task "
+          f"{wide_log['test_task'][0][0]:.2f} s ({steps} steps, {rows} fused evaluations), "
+          f"synthesis forward {1e3 * wide_log['synth'][-1][0]:.2f} ms, vocoder call "
+          f"{1e3 * wide_log['vocoder'][-1][0]:.1f} ms ({EER_RUN['eval_queries']} wavs); "
+          f"launches flash {wide_counts[0]} + {wide_counts[1]}, fused {wide_counts[2]}")
+    return tuple(c + w for c, w in zip(counts, wide_counts))
+
+
+# ---------------------------------------------------------------- ddp
+
+DDP_WORLD = 2
+DDP_CASES = ("meta", "baseline", "imaml")
+DDP_TOL = 2e-4            # tests/test_parallel.py's loss rtol and parameter atol
+DDP_L, DDP_T = 32, 256    # symbols and mel frames of an utterance
+
+
+def _ddp_batches():
+    """(support, query) of 2 episodes of 2 + 2 utterances, and a flat batch
+    of 4 whose halves hold different numbers of valid frames and symbols."""
+    import numpy as np
+    from metatts_torch.data.collate import map_batch
+    rng = np.random.RandomState(0)
+    n_mels = 80
+    sup = episode_batch(rng, DDP_WORLD, 2, DDP_L, DDP_T, n_mels, N_SPEAKERS)
+    qry = episode_batch(rng, DDP_WORLD, 2, DDP_L, DDP_T, n_mels, N_SPEAKERS)
+    flat = map_batch(lambda t: t[0].clone(), episode_batch(rng, 1, 4, DDP_L, DDP_T, n_mels,
+                                                           N_SPEAKERS))
+    flat.d_targets[2:, :] = 0
+    flat.d_targets[2:, :DDP_L // 2] = 1
+    flat.src_lens[2:] = DDP_L // 2
+    flat.mel_lens[2:] = DDP_L // 2
+    return sup, qry, flat
+
+
+def ddp_case(case, distributed, cudnn=True):
+    """One training step of ``case`` at the base configuration in fp32,
+    under deterministic algorithms, on the card, with cuDNN's convolutions
+    or (``cudnn`` false) PyTorch's own; sharded over the process group when
+    ``distributed``.  Returns (total loss, name -> parameter on the CPU,
+    flash launches, name -> the optimizer's gradient on the CPU)."""
+    import copy
+    import torch
+    from metatts_torch import config as C
+    from metatts_torch.algorithms import get_system
+    pcfg, mcfg, acfg = C.base_configs()
+    acfg = C.deep_merge(acfg, {"type": case, "adapt": {"train": {
+        "shots": 2, "queries": 2, "meta_batch_size": DDP_WORLD}}})
+    tcfg = copy.deepcopy(C.TRAIN_DEFAULTS)
+    system = get_system(case)(pcfg, _fp32(mcfg), tcfg, acfg, n_speakers=N_SPEAKERS,
+                              seed=0, device="cuda")
+    if distributed and system.enable_distributed() is None:
+        raise AssertionError("enable_distributed found no process group")
+    sup, qry, flat = _ddp_batches()
+    grads, apply = {}, system.apply_updates
+
+    def record(g):      # the gradient the optimizer gets (summed over ranks)
+        grads.update({n: v.detach().cpu() for n, v in g.items() if v is not None})
+        apply(g)
+    system.apply_updates = record
+    _flash_zero()
+    args = (flat,) if case == "baseline" else (sup, qry)
+    torch.backends.cudnn.enabled = cudnn
+    try:
+        losses = _deterministic(lambda: system.train_step(*args))
+    finally:
+        torch.backends.cudnn.enabled = True
+    return (float(losses.total), {n: p.detach().cpu() for n, p in system.params.items()},
+            _launch_counts()[:2], grads)
+
+
+def ddp_rank(rank, store, out):
+    """One of the ``ddp`` phase's ranks: gloo over a file store, the card
+    as device 0 (NCCL refuses two ranks on one device)."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=DDP_WORLD)
+    try:
+        torch.save({(case, cudnn): ddp_case(case, True, cudnn) for case in DDP_CASES
+                    for cudnn in (True, False)}, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_ddp():
+    """Two ranks on the one card over gloo against one process; see the
+    module docstring."""
+    import tempfile
+    import torch
+    card = card_line()
+    work = tempfile.mkdtemp(prefix="ddp_smoke_")
+    try:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--ddp-rank",
+                                   str(r), os.path.join(work, "store"),
+                                   os.path.join(work, f"rank{r}.pt")],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+                 for r in range(DDP_WORLD)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=600)[0].decode(errors="replace"))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, text) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"[ddp] rank {r} exited {p.returncode}:\n{text[-3000:]}")
+        ranks_s = time.perf_counter() - t0
+        got = [torch.load(os.path.join(work, f"rank{r}.pt")) for r in range(DDP_WORLD)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    # loss and parameters held with cuDNN's convolutions and with PyTorch's
+    # own; the gradient with PyTorch's own, since at this init the
+    # gradient amplifies the rounding of cuDNN's batch-size-dependent
+    # algorithm choice (a rank convolves half the batch), which is printed
+    counts = [0, 0]
+    n_layers = 10
+    for case in DDP_CASES:
+        g_gaps = {}
+        for cudnn in (True, False):
+            t0 = time.perf_counter()
+            want_loss, want_params, _, want_grads = ddp_case(case, False, cudnn)
+            one_s = time.perf_counter() - t0
+            for r, res in enumerate(got):
+                loss, params, launches, grads = res[(case, cudnn)]
+                gap = max(float((params[n] - want_params[n]).abs().max()) for n in want_params)
+                g_gap = rel_l2(grads, want_grads)
+                g_gaps[cudnn] = max(g_gaps.get(cudnn, 0.0), g_gap)
+                if not (abs(loss - want_loss) <= DDP_TOL * abs(want_loss) and gap <= DDP_TOL
+                        and grads.keys() == want_grads.keys()
+                        and (cudnn or g_gap <= DDP_TOL)
+                        and launches == (n_layers, n_layers)):
+                    raise AssertionError(
+                        f"[ddp] {case} rank {r} (cuDNN {cudnn}): loss {loss} vs {want_loss}, "
+                        f"parameters max abs {gap:.3e}, gradient rel L2 {g_gap:.3e} "
+                        f"({top_gaps(grads, want_grads)}), launches {launches}")
+                counts = [c + n for c, n in zip(counts, launches)]
+            if not all(torch.equal(got[0][(case, cudnn)][1][n], got[1][(case, cudnn)][1][n])
+                       for n in want_params):
+                raise AssertionError(f"[ddp] {case} (cuDNN {cudnn}): the ranks' parameters differ")
+        print(f"[ddp] {case} step, base width fp32, {DDP_WORLD} ranks over gloo on one card vs "
+              f"one process ({card}): loss {got[0][(case, False)][0]:.6f} vs {want_loss:.6f}, "
+              f"parameters max abs {max(float((got[0][(case, False)][1][n] - want_params[n]).abs().max()) for n in want_params):.3e}, "
+              f"the optimizer's gradient rel L2 {g_gaps[False]:.3e} (tolerance {DDP_TOL:g}; "
+              f"{g_gaps[True]:.3e} with cuDNN's convolutions, not held); ranks identical; "
+              f"flash a rank {got[0][(case, False)][2]} a step; one process {one_s:.1f} s")
+    print(f"[ddp] both ranks, start to end: {ranks_s:.1f} s; NCCL across cards is not "
+          f"exercised here (one card)")
+    return tuple(counts)
+
+
 def with_time(phase):
     """One phase, with its wall time."""
     t0 = time.perf_counter()
@@ -3222,6 +3691,8 @@ def main():
         fit_launches = with_time(functools.partial(phase_fit, corpus))
         dvec_launches = with_time(functools.partial(phase_dvec, corpus))
         lang_launches = with_time(phase_lang)
+        eer_launches = with_time(phase_synth_eer)
+        ddp_launches = with_time(phase_ddp)
     finally:
         shutil.rmtree(corpus[0], ignore_errors=True)
 
@@ -3236,6 +3707,7 @@ def main():
                              "composite_ms", "stages_ms")},
         "library_ms": None,
         "test_launches": test_launches[2], "fit_launches": fit_launches[2],
+        "synth_eer_launches": eer_launches[2],
         "shape": "B=8 T=1000 D=256 H=2 F=1024 K=9 fp32 in/out",
         **{f"{n}_{B}x{T}": kern[(B, T)][n] for B, T in ((1, 1000), (8, 160), (8, 64))
            for n in ("ms", "device_ms", "bound_ms")},
@@ -3253,6 +3725,7 @@ def main():
             "launches": flash_launches[i], "test_launches": test_launches[i],
             "fit_launches": fit_launches[i], "imaml_launches": imaml_launches[i],
             "dvec_launches": dvec_launches[i], "lang_launches": lang_launches[i],
+            "synth_eer_launches": eer_launches[i], "ddp_launches": ddp_launches[i],
             **main_shape[way],
             "shape": "BH=10 T=896 D=128 bf16",
             **{f"{n}_t128": text_shape[way][n]
@@ -3279,4 +3752,7 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddp-rank"]:     # a rank of the ddp phase
+        ddp_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        sys.exit(0)
     sys.exit(main())

@@ -1,6 +1,6 @@
 """The port's CLI (the root ``main.py`` stays the JAX package's):
 
-    python -m metatts_torch -s {train,test,predict}
+    python -m metatts_torch -s {train,test,predict,debug}
                             -p <preprocess.yaml>... -m <model.yaml>
                             -t <train.yaml>... -a <algorithm.yaml>
                             [-e exp_name] [-c ckpt_path] [--device cuda|cpu]
@@ -12,9 +12,13 @@
              package (weights, step and optimizer state)
   test    -- few-shot adaptation + synthesis over the frozen test tasks
   predict -- synthesize every line of a TextDataset ``--source`` file
+  debug   -- read every sample of the test set once and print the count
 
 For test and predict, ``-c`` loads a checkpoint of either package under
-the surgery rules.
+the surgery rules.  Under a launcher (``torchrun --nproc_per_node N -m
+metatts_torch -s train ...``; ``WORLD_SIZE`` > 1) every rank joins the
+process group on ``cuda:LOCAL_RANK`` (gloo ranks with ``--device cpu``)
+before the system is built, and ``Trainer`` shards the steps over them.
 """
 
 import argparse
@@ -57,9 +61,12 @@ def main(args, configs):
     from .train.checkpoint import load_checkpoint
     from .train.loop import Trainer
 
+    from .parallel.distributed import init_from_env
+
     log_dir = os.path.join(args.output_dir, "log", args.exp_name)
     os.makedirs(log_dir, exist_ok=True)
-    system, dm = build(configs, log_dir=log_dir, device=args.device)
+    device = init_from_env(device=args.device) or args.device
+    system, dm = build(configs, log_dir=log_dir, device=device)
     if args.ckpt_path and args.stage != "train":
         _, _, report = load_checkpoint(args.ckpt_path, system.model)
         for r in report:
@@ -70,6 +77,13 @@ def main(args, configs):
                                                device=system.device))
         return
     dm.setup()
+    if args.stage == "debug":
+        n = 0
+        for i in range(len(dm.test_set)):
+            _ = dm.test_set[i]
+            n += 1
+        print(f"debug: iterated {n} test samples OK")
+        return
     vocoder = (None if args.no_synth
                else Vocoder(configs[1], n_mels=n_mels, device=system.device))
     trainer = Trainer(system, dm, configs[2], output_dir=args.output_dir,
@@ -117,7 +131,7 @@ def predict(args, configs, system, vocoder, predict_batch=8):
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(prog="python -m metatts_torch")
     parser.add_argument("-s", "--stage", type=str, default="test",
-                        choices=["train", "test", "predict"])
+                        choices=["train", "test", "predict", "debug"])
     parser.add_argument("-p", "--preprocess_config", type=str, nargs="+",
                         default=["config/preprocess/miniLibriTTS.yaml"])
     parser.add_argument("-m", "--model_config", type=str,

@@ -4,7 +4,10 @@ dropout from.
 
 The JAX package's ``System`` (``algorithms/base.py``): the training step's
 shared parts and the test stage (first-order adaptation with a query
-evaluation and a parameter snapshot at every saving step).
+evaluation and a parameter snapshot at every saving step), and
+``enable_distributed``, its ``enable_mesh``: under a process group each
+rank takes its shard of the episode or batch axis and the gradients are
+summed over the ranks (``parallel/distributed.py``).
 """
 
 import math
@@ -50,10 +53,17 @@ class System:
     def __init__(self, preprocess_cfg, model_cfg, train_cfg, algorithm_cfg,
                  stats=None, n_speakers=8, seed=43, device="cuda"):
         """Random init from ``seed`` on ``device`` (default the card; without
-        one it raises unless ``device="cpu"``)."""
+        one it raises unless ``device="cpu"``).  On the card a model
+        computing in float32 turns off TF32 for cuDNN's convolutions in the
+        process."""
         if isinstance(preprocess_cfg, list):
             preprocess_cfg = preprocess_cfg[0]
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and model_cfg.get("compute_dtype", "float32") == "float32":
+            # fp32 compute means fp32 products, as in the JAX package: at
+            # PyTorch's default flags cuDNN runs fp32 convolutions in TF32,
+            # whose rounding the second-order meta-gradient amplifies
+            torch.backends.cudnn.allow_tf32 = False
         self.pcfg = preprocess_cfg
         self.mcfg = model_cfg
         self.tcfg = train_cfg
@@ -78,6 +88,48 @@ class System:
         self.global_step = 0
         self._rng = torch.Generator().manual_seed(train_seed)
         self.snapshot_mode = None      # the test stage's, once it has run
+        self.shard = None              # set by enable_distributed
+
+    # ------------------------------------------------------- distribution
+
+    def enable_distributed(self):
+        """Shard the training step's episode (or flat-batch) axis over the
+        ranks of the process group, the counterpart of
+        the JAX package's ``enable_mesh``.  Every rank then takes the whole
+        batch and computes on its contiguous shard; the gradients are
+        summed over the ranks before the clip and the optimizer, so every
+        rank applies the same update; validation and the batched test stage
+        shard their episodes where the world size divides them and gather
+        the rows.  Rank 0's weights are broadcast to every rank.  Returns
+        the ``Shard``, or None outside a process group of more than one
+        rank (a single-process run is unchanged)."""
+        from ..parallel.distributed import Shard, world_size
+        if world_size() <= 1:
+            return None
+        self.shard = Shard()
+        self.shard.broadcast_(self.model)
+        return self.shard
+
+    def _episodes(self, n, what="meta_batch_size", strict=True):
+        """The global indices of the episodes (or rows) of a leading axis of
+        ``n`` that this rank computes: all of them outside a process group
+        and, unless ``strict``, where the world size does not divide ``n``
+        (then every rank computes every one); ``strict`` raises there."""
+        if self.shard is None or (not strict and not self.shard.divides(n)):
+            return range(n)
+        return range(*self.shard.bounds(n, what))
+
+    def _gathered(self, t, n):
+        """``t`` over this rank's episodes -> over all ``n`` of them."""
+        return t if t.shape[0] == n else self.shard.gather_rows(t)
+
+    def _mean_losses(self, losses, n):
+        """The mean over all ``n`` episodes of this rank's LossValues."""
+        if self.shard is None:
+            return LossValues(*(torch.stack(v).mean() for v in zip(*losses)))
+        sums = [torch.stack(v).sum() for v in zip(*losses)]
+        self.shard.all_reduce_(sums)
+        return LossValues(*(v / n for v in sums))
 
     @property
     def params(self):
@@ -120,13 +172,16 @@ class System:
         """``validation_step`` over the E episodes of Batches stacked on a
         leading episode axis, one after another; episode e draws from
         ``split(next_rng(), E)[e]``, as the JAX package splits its key.
-        Returns LossValues with (E,) fields."""
+        Under ``enable_distributed`` each rank runs its shard of the
+        episodes and the rows are gathered.  Returns LossValues with (E,)
+        fields."""
         self.model.eval()
         E = sup_stack.texts.shape[0]
         sup_stack, qry_stack = sup_stack.to(self.device), qry_stack.to(self.device)
-        runs = [self._val_losses(episode(sup_stack, e), episode(qry_stack, e), s)
-                for e, s in enumerate(L.split(self.next_rng(), E))]
-        return LossValues(*(torch.stack(v) for v in zip(*runs)))
+        seeds = L.split(self.next_rng(), E)
+        runs = [self._val_losses(episode(sup_stack, e), episode(qry_stack, e), seeds[e])
+                for e in self._episodes(E, strict=False)]
+        return LossValues(*(self._gathered(torch.stack(v), E) for v in zip(*runs)))
 
     # --------------------------------------------------- test adaptation
 
@@ -211,7 +266,9 @@ class System:
         the JAX package (its fused kernel has no per-episode weights).  Each
         chunk draws one seed from ``next_rng()`` and episode e takes
         ``split(seed, E)[e]``, as the JAX package splits its key, so only
-        the dropout bits differ from it.
+        the dropout bits differ from it.  Under ``enable_distributed`` each
+        rank runs its shard of the episodes and every rank gets all rows
+        and snapshots.
 
         Returns ``(rows, snapshots)`` with every loss and every snapshot
         tensor stacked on a leading E axis."""
@@ -225,11 +282,12 @@ class System:
         sup_stack, qry_stack = sup_stack.to(self.device), qry_stack.to(self.device)
         runs = [self._trajectory(episode(sup_stack, e), episode(qry_stack, e),
                                  targets, chunk, [s[e] for s in seeds], keep, None)
-                for e in range(E)]
-        rows = [(ft, LossValues(*(torch.stack(v) for v in
+                for e in self._episodes(E, strict=False)]
+        rows = [(ft, LossValues(*(self._gathered(torch.stack(v), E) for v in
                                   zip(*(run[0][i][1] for run in runs)))))
                 for i, (ft, _) in enumerate(runs[0][0])]
-        snapshots = [(ft, _stack([run[1][i][1] for run in runs]))
+        snapshots = [(ft, {k: self._gathered(v, E) for k, v in
+                           _stack([run[1][i][1] for run in runs]).items()})
                      for i, (ft, _) in enumerate(runs[0][1])]
         return rows, snapshots
 

@@ -6,9 +6,13 @@ loss over a flat batch; validation still adapts first-order like MAML
 (``System.validation_step``), so baseline and meta models compare at eval.
 """
 
+import contextlib
+
 import torch
 
+from ..data.collate import map_batch
 from ..models.loss import LossValues
+from ..parallel.distributed import row_shard
 from .base import System
 
 
@@ -20,12 +24,27 @@ class BaselineSystem(System):
         dropout (seeded from ``next_rng()``), which updates the postnet's
         BatchNorm running statistics as the JAX step keeps its new state;
         the loss; the gradient of every parameter, the encoder's included;
-        one optimizer step.  Returns LossValues."""
+        one optimizer step.  Returns LossValues.
+
+        Under ``enable_distributed`` a rank computes its rows of the batch
+        within ``row_shard``, so the losses' valid counts, the BatchNorm
+        statistics and the dropout masks are the whole batch's, and the
+        gradients and losses are summed over the ranks."""
         batch = batch.to(self.device)
         self.model.train()
         params = self.params
-        total, losses = self._supervised_loss(params, batch, self.next_rng(), True,
-                                              update_bn_state=True)
-        grads = torch.autograd.grad(total, list(params.values()), allow_unused=True)
+        seed, ctx = self.next_rng(), contextlib.nullcontext()
+        if self.shard is not None:
+            B = batch.texts.shape[0]
+            lo, hi = self.shard.bounds(B, "batch_size")
+            batch = map_batch(lambda t: t[lo:hi], batch)
+            ctx = row_shard(lo, hi, B)
+        with ctx:
+            total, losses = self._supervised_loss(params, batch, seed, True,
+                                                  update_bn_state=True)
+            grads = torch.autograd.grad(total, list(params.values()), allow_unused=True)
+        losses = [v.detach() for v in losses]
+        if self.shard is not None:
+            self.shard.all_reduce_(list(grads) + losses)
         self.apply_updates(dict(zip(params, grads)))
-        return LossValues(*(v.detach() for v in losses))
+        return LossValues(*losses)

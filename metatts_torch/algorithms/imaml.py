@@ -155,15 +155,21 @@ class IMAMLSystem(System):
         """sup / qry: Batches stacked on a leading episode axis E.  Returns
         (the episodes' mean LossValues, the mean hypergradient with its
         non-finite entries zeroed, then clipped to the global norm
-        ``grad_clip_thresh``); episode e draws from ``split(seed, E)[e]``."""
+        ``grad_clip_thresh``); episode e draws from ``split(seed, E)[e]``.
+        Under ``enable_distributed`` a rank computes its shard's episodes."""
         params = self.params
         E = sup.texts.shape[0]
+        seeds = L.split(seed, E)
         self.model.train()
         grads, losses = None, []
-        for e, s in enumerate(L.split(seed, E)):
-            g, lv = self._episode_hypergrad(params, episode(sup, e), episode(qry, e), s)
+        for e in self._episodes(E):
+            g, lv = self._episode_hypergrad(params, episode(sup, e), episode(qry, e), seeds[e])
             grads = g if grads is None else {n: grads[n] + g[n] for n in grads}
             losses.append(lv)
+        if self.shard is not None:
+            # the sum over every rank's episodes, before the NaN-zeroing and
+            # the clip, which then do the same on every rank
+            self.shard.all_reduce_(list(grads.values()))
         # CG on an indefinite inner Hessian can blow up: zero non-finite
         # entries, then clip by global norm (reference imaml.py:125-131),
         # before the optimizer's own clip
@@ -173,8 +179,7 @@ class IMAMLSystem(System):
         clip = self.tcfg["optimizer"]["grad_clip_thresh"]
         scale = torch.clamp(clip / torch.clamp(gnorm, min=1e-12), max=1.0)
         grads = {n: g * scale for n, g in grads.items()}
-        mean = LossValues(*(torch.stack(v).mean() for v in zip(*losses)))
-        return mean, grads
+        return self._mean_losses(losses, E), grads
 
     def train_step(self, sup_batch, qry_batch):
         """One iMAML outer step over episode-stacked support / query Batches.

@@ -30,14 +30,17 @@ class MetaSystem(System):
         (the episodes' mean LossValues, the gradient of the mean total loss
         as name -> tensor); episode e draws from ``split(seed, E)[e]``.
         Each episode is differentiated on its own and the gradients summed,
-        so only one episode's graph is alive at a time."""
+        so only one episode's graph is alive at a time; under
+        ``enable_distributed`` a rank sums its shard's and the sums are
+        summed over the ranks."""
         params = self.params
         names = list(params)
         n_episodes = sup.texts.shape[0]
+        seeds = L.split(seed, n_episodes)
         self.model.train()
         grads, losses = None, []
-        for e, s in enumerate(L.split(seed, n_episodes)):
-            lv = self._episode_loss(params, episode(sup, e), episode(qry, e), s, True,
+        for e in self._episodes(n_episodes):
+            lv = self._episode_loss(params, episode(sup, e), episode(qry, e), seeds[e], True,
                                     None if phn_ref is None else phn_ref[e])
             g = torch.autograd.grad(lv.total / n_episodes,
                                     [params[n] for n in names], allow_unused=True)
@@ -45,8 +48,9 @@ class MetaSystem(System):
                 b if a is None else a if b is None else a + b
                 for a, b in zip(grads, g)]
             losses.append(LossValues(*(v.detach() for v in lv)))
-        mean = LossValues(*(torch.stack(v).mean() for v in zip(*losses)))
-        return mean, dict(zip(names, grads))
+        if self.shard is not None:
+            self.shard.all_reduce_(grads)
+        return self._mean_losses(losses, n_episodes), dict(zip(names, grads))
 
     def train_step(self, sup_batch, qry_batch, phn_ref=None):
         """One meta step over episode-stacked support / query Batches (and,

@@ -2,11 +2,16 @@
 
 Masked means are sum(err * mask) / max(sum(mask), 1), all in fp32, as in
 the JAX package: the reference's masked_select + mean at static shapes.
+On a rank's shard of a flat batch (``parallel.distributed.row_shard``) the
+denominator is the whole batch's valid count, so the ranks' losses sum to
+the whole batch's.
 """
 
 from typing import Any, NamedTuple
 
 import torch
+
+from ..parallel.distributed import current_row_shard, global_sum
 
 
 class LossValues(NamedTuple):
@@ -23,7 +28,11 @@ class LossValues(NamedTuple):
 
 def _masked_mean(err, mask):
     m = mask.float()
-    return (err * m).sum() / m.sum().clamp_min(1.0)
+    den = m.sum()
+    shard = current_row_shard()
+    if shard is not None:
+        den = global_sum(den.detach())
+    return (err * m).sum() / den.clamp_min(1.0)
 
 
 def _masked_l1(pred, target, mask):

@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.distributed import current_row_shard, global_sum
+
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
@@ -90,7 +92,9 @@ class BatchNorm(nn.Module):
     state; training normalises with the batch's population variance and,
     unless ``update_state=False``, updates the running state with momentum
     0.1 (JAX package semantics: its ``batch_norm`` returns the new state and
-    the meta step never keeps it)."""
+    the meta step never keeps it).  On a rank's shard of a flat batch
+    (``parallel.distributed.row_shard``) the statistics are the whole
+    batch's, reduced over the ranks differentiably."""
 
     def __init__(self, d, momentum=0.1, eps=1e-5):
         super().__init__()
@@ -104,8 +108,14 @@ class BatchNorm(nn.Module):
         """``train`` defaults to the module's mode."""
         x = x.float()
         if self.training if train is None else train:
-            mean = x.mean((0, 1))
-            var = x.var((0, 1), unbiased=False)
+            shard = current_row_shard()
+            if shard is None:
+                mean = x.mean((0, 1))
+                var = x.var((0, 1), unbiased=False)
+            else:
+                n = shard.total * x.shape[1]
+                mean = global_sum(x.sum((0, 1))) / n
+                var = global_sum(((x - mean) ** 2).sum((0, 1))) / n
             if update_state:
                 with torch.no_grad():
                     m = self.momentum
@@ -250,11 +260,17 @@ def dropout(x, rate, train, generator):
     """Inverted dropout with the keep mask drawn from ``generator``
     (the JAX package's ``nn.dropout``: identity unless training with a
     generator and a non-zero rate).  The same generator state gives the same
-    mask, so a forward can be replayed."""
+    mask, so a forward can be replayed.  On a rank's shard of a flat batch
+    (``parallel.distributed.row_shard``) the whole batch's mask is drawn and
+    the shard's rows kept."""
     if not train or rate == 0.0 or generator is None:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    shard = current_row_shard()
+    shape = x.shape if shard is None else (shard.total,) + tuple(x.shape[1:])
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    if shard is not None:
+        mask = mask[shard.lo:shard.hi]
     # the keep rate in x's dtype, as JAX's weak typing rounds it
     scale = torch.tensor(keep, dtype=x.dtype, device=x.device)
     return torch.where(mask, x / scale, torch.zeros((), dtype=x.dtype,

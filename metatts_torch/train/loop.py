@@ -12,6 +12,12 @@ and the train CSV every ``log_step``, episodic validation every
 losses and, with a vocoder, one teacher-forced ``recon`` wav from the
 un-adapted weights and one ``step_<ckpt>-FTstep_<n>.synth`` wav with its
 figure per saving step.
+
+Under a launcher with ``WORLD_SIZE`` > 1 (``torchrun``), ``fit`` and
+``test`` join the process group and call ``System.enable_distributed``
+unless ``train.distributed`` is "off": every rank draws the same global
+batches and computes its shard, and only rank 0 writes logs, CSVs,
+checkpoints and audio.
 """
 
 import os
@@ -24,6 +30,7 @@ from ..algorithms.adapt import episode_speaker_args
 from ..algorithms.base import episode
 from ..data.collate import collate_episode, map_batch
 from ..models.loss import LossValues
+from ..parallel import distributed as D
 from .checkpoint import load_checkpoint, save_checkpoint
 from .logging import ExperimentLogger
 from .saver import Saver
@@ -45,6 +52,29 @@ class Trainer:
         self.logger = ExperimentLogger(self.saver.log_dir, exp_name)
         self.vocoder = vocoder
 
+    def _distribute(self):
+        """Under a launcher with ``WORLD_SIZE`` > 1, join its process group
+        and shard the system over it (``System.enable_distributed``) unless
+        ``train.distributed`` is "off"; the system must already sit on the
+        rank's device (``parallel.distributed.init_from_env`` returns it).
+        Returns True where this process writes the run's files (rank 0, or
+        no process group)."""
+        system = self.system
+        if (self.tcfg.get("distributed", "auto") != "off" and system.shard is None
+                and D.init_from_env(device=system.device) is not None):
+            shard = system.enable_distributed()
+            if shard is not None and D.is_main():
+                print(f"[ddp] {shard.world} ranks over {D.dist.get_backend()}; the "
+                      f"{'episode' if system.algorithm_type != 'baseline' else 'batch'} "
+                      "axis sharded, weights replicated")
+        return D.is_main()
+
+    def _task_batch(self, task_batch):
+        """``task_batch`` or ``train.test_task_batch``; "auto" is the world
+        size (1 without a process group)."""
+        tb = task_batch or self.tcfg.get("test_task_batch", 1)
+        return (self.system.shard.world if self.system.shard else 1) if tb == "auto" else tb
+
     # ------------------------------------------------------------- train
 
     def fit(self, resume_from=None, max_steps=None):
@@ -52,9 +82,10 @@ class Trainer:
         from a checkpoint of either package: its weights, its step and,
         where surgery changed nothing, its optimizer state.
 
-        Left out against the JAX package: the device mesh (ROADMAP Queue 1
-        item 13), and ``train.transfer_mel_dtype``, TPU transfer plumbing,
-        which is read and ignored.  Failures of the in-loop synthesis and of
+        Under a launcher every rank runs ``fit`` on its shard (the module
+        docstring); rank 0 alone logs, validates into CSVs, synthesizes and
+        saves.  Left out against the JAX package: ``train.transfer_mel_dtype``,
+        TPU transfer plumbing, which is read and ignored.  Failures of the in-loop synthesis and of
         the validation sample are not caught, where the JAX package prints
         them and goes on: a kernel fault on the card must not hide behind a
         run that goes on.  ``train.profile``: "simple" (default) times every
@@ -69,9 +100,11 @@ class Trainer:
         val_every = self.steps["val_step"]
         save_every = self.steps["save_step"]
         synth_every = self.steps.get("synth_step", 0)
+        main = self._distribute()
 
-        self.logger.log_hyperparams({
-            "model": system.mcfg, "train": self.tcfg, "algorithm": system.acfg})
+        if main:
+            self.logger.log_hyperparams({
+                "model": system.mcfg, "train": self.tcfg, "algorithm": system.acfg})
         if resume_from:
             opt_state, step, report = load_checkpoint(resume_from, system.model)
             if opt_state is not None:
@@ -119,13 +152,14 @@ class Trainer:
                     trace_cm.__exit__(None, None, None)
                     trace_cm = None
                     prof_mode = "simple"
-                if step % log_every == 0 or step == total:
+                if main and (step % log_every == 0 or step == total):
                     self._log_step(step, total, losses, t0, timer)
                 if step % val_every == 0 and hasattr(self.dm, "val_episodes"):
                     self.validate(step)
-                if self.vocoder is not None and synth_every and step % synth_every == 0:
+                if (main and self.vocoder is not None and synth_every
+                        and step % synth_every == 0):
                     self.synth_sample(step, sup if meta else batch, episode_batched=meta)
-                if step % save_every == 0 or step == total:
+                if main and (step % save_every == 0 or step == total):
                     for name in (f"step_{step}.ckpt", "last.ckpt"):
                         save_checkpoint(os.path.join(self.ckpt_dir, name), system.model,
                                         step, system.optimizer)
@@ -133,7 +167,7 @@ class Trainer:
             gen.close()
             if trace_cm is not None:
                 trace_cm.__exit__(None, None, None)
-        if timer and timer.stats():
+        if main and timer and timer.stats():
             self._log_profile(timer.stats(), device_memory_stats(), t_warm, warm_step)
         return system
 
@@ -174,13 +208,14 @@ class Trainer:
 
     def validate(self, step, max_tasks=None, task_batch=None):
         """Episodic validation: every frozen val task, ``task_batch``
-        (default ``train.test_task_batch``; "auto" is 1, one card) at a time
-        through ``System.validation_step_batched``, one task through
+        (default ``train.test_task_batch``; "auto" is the world size, 1
+        without a process group) at a time through
+        ``System.validation_step_batched``, one task through
         ``validation_step``; one CSV row per task, and with a vocoder the
-        first task's sample (``_save_val_sample``).  Returns the rows."""
-        tb = task_batch or self.tcfg.get("test_task_batch", 1)
-        if tb == "auto":
-            tb = 1
+        first task's sample (``_save_val_sample``), on rank 0.  Returns the
+        rows."""
+        tb = self._task_batch(task_batch)
+        main = D.is_main()
         totals, first_pair = [], []
 
         def run_batched(buf):
@@ -195,8 +230,9 @@ class Trainer:
                 rows = [[float(x[e]) for x in losses_E] for e in range(len(buf))]
             for (i, _, _), row in zip(buf, rows):
                 totals.append(row)
-                self.saver.log_task_csv("Validation", f"val_{i:03d}",
-                                        [(step, LossValues(*row))])
+                if main:
+                    self.saver.log_task_csv("Validation", f"val_{i:03d}",
+                                            [(step, LossValues(*row))])
 
         buf = []
         for i, (_, (sup, qry)) in enumerate(self.dm.val_episodes()):
@@ -208,11 +244,11 @@ class Trainer:
                 buf = []
         if buf:
             run_batched(buf)
-        if first_pair and self.vocoder is not None:
+        if main and first_pair and self.vocoder is not None:
             # the first task's audio and synthesized-vs-ground-truth figure
             # (reference Saver on_validation_batch_end, saver.py:96-105)
             self._save_val_sample(step, *first_pair[0])
-        if totals:
+        if main and totals:
             mean = np.mean(totals, axis=0)
             print(f"[val @ {step}] total={mean[0]:.4f} mel={mean[1]:.4f}")
         return totals
@@ -275,13 +311,14 @@ class Trainer:
         ``tasks_per_label`` overrides the per-speaker task count (reference
         default 16).  ``task_batch`` (or ``train.test_task_batch``) runs that
         many tasks through one ``System.test_adapt_batched`` call; "auto" is
-        1, since every task runs on the system's one device, and 1-shot mode
-        keeps the sequential path.  Returns task id -> rows."""
+        the world size (1 without a process group), and 1-shot mode keeps
+        the sequential path.  Under a launcher the batched tasks are sharded
+        over the ranks and rank 0 writes every task's files.  Returns task
+        id -> rows."""
         system = self.system
         test_cfg = system.acfg["adapt"]["test"]
-        tb = task_batch or self.tcfg.get("test_task_batch", 1)
-        if tb == "auto" or test_cfg.get("1-shot", False):
-            tb = 1
+        main = self._distribute()
+        tb = 1 if test_cfg.get("1-shot", False) else self._task_batch(task_batch)
         if test_cfg.get("avg_train_spk_emb") and system.model.speaker_emb is not None \
                 and system.model.speaker_emb.emb_type == "table":
             # overwrite unseen-speaker rows with the mean train embedding
@@ -296,9 +333,10 @@ class Trainer:
                     if tasks_per_label else self.dm.test_episodes())
 
         def finish(tid, rows, snapshots, sup, qry, qry_meta):
-            self.saver.log_task_csv("Testing", tid, rows, ckpt_step=ckpt_step)
-            if self.vocoder is not None:
-                self._save_test_audio(tid, snapshots, sup, qry, qry_meta, ckpt_step)
+            if main:
+                self.saver.log_task_csv("Testing", tid, rows, ckpt_step=ckpt_step)
+                if self.vocoder is not None:
+                    self._save_test_audio(tid, snapshots, sup, qry, qry_meta, ckpt_step)
             results[tid] = rows
 
         def run_sequential(i, sup, qry):

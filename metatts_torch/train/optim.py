@@ -37,19 +37,31 @@ def noam_schedule(d_model, warmup, anneal_steps, anneal_rate):
     return lr
 
 
+def linear_warmup_schedule(peak, warmup):
+    """step -> lr, optax's ``linear_schedule(0, peak, warmup)`` in fp32: a
+    ramp from 0 at step 0 to ``peak`` at step ``warmup``, then constant."""
+    def lr(step):
+        frac = 1.0 - (torch.tensor(min(max(int(step), 0), warmup), dtype=f32)
+                      / torch.tensor(float(warmup), dtype=f32))
+        return torch.tensor(-float(peak), dtype=f32) * frac + torch.tensor(float(peak), dtype=f32)
+
+    return lr
+
+
 class NoamAdam:
     """The training optimizer over a dict of named parameters.
 
     ``step(params, grads)`` updates ``params`` (name -> tensor) in place from
     ``grads`` (name -> tensor, None for none); while gradients accumulate it
-    leaves them as they are.
+    leaves them as they are.  ``schedule`` (step -> lr) replaces the Noam
+    schedule of the configs, e.g. ``linear_warmup_schedule``.
     """
 
-    def __init__(self, params, model_cfg, train_cfg):
+    def __init__(self, params, model_cfg, train_cfg, schedule=None):
         o = train_cfg["optimizer"]
-        self.lr = noam_schedule(model_cfg["transformer"]["encoder_hidden"],
-                                o["warm_up_step"], o["anneal_steps"],
-                                o["anneal_rate"])
+        self.lr = schedule or noam_schedule(
+            model_cfg["transformer"]["encoder_hidden"], o["warm_up_step"],
+            o["anneal_steps"], o["anneal_rate"])
         self.b1, self.b2 = (float(b) for b in o["betas"])
         self.eps = float(o["eps"])
         self.clip = float(o["grad_clip_thresh"])

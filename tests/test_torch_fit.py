@@ -571,6 +571,28 @@ def test_train_cli_needs_a_card_and_imaml_raises(setup, tmp_path):
     assert all(np.isfinite(float(v)) for r in rows for v in r[1:])
 
 
+@pytest.mark.parametrize("kind", ["baseline", "meta"])
+def test_debug_cli_prints_the_jax_line(setup, tmp_path, capsys, kind):
+    """``-s debug`` reads every test sample once and prints the JAX CLI's
+    line (``main.py``'s debug stage: the count of its datamodule's test
+    set); without a card it raises unless ``--device cpu``."""
+    from metatts_torch.__main__ import main, parse_args
+    acfg = _acfg(kind)
+    configs = ([setup["pcfg"]], setup["mcfg"], _step_train_cfg(), acfg)
+    jdm = (JaxMetaDM if kind == "meta" else JaxBaselineDM)(
+        [setup["pcfg"]], _step_train_cfg(), acfg, log_dir=str(tmp_path / "jax"))
+    jdm.setup()
+    args = ["-s", "debug", "--output_dir", str(tmp_path), "-e", "debug"]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(parse_args(args), configs)
+    capsys.readouterr()
+    main(parse_args(args + ["--device", "cpu"]), configs)
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[-1] == f"debug: iterated {len(jdm.test_set)} test samples OK"
+    assert len(jdm.test_set) > 0
+
+
 # ------------------------------------------------------- host utilities
 
 def test_prefetcher_yields_in_order_and_raises_the_producers_error():

@@ -180,3 +180,24 @@ def test_evaluation_slice_modules_are_checked(module):
     top = [a.name for n in body if isinstance(n, ast.Import) for a in n.names]
     top += [n.module for n in body if isinstance(n, ast.ImportFrom) and n.module]
     assert not [n for n in top if n.split(".")[0] in ("matplotlib", "sklearn", "yaml")]
+
+
+@pytest.mark.parametrize("module", [
+    "metatts_torch.data.synthetic", "metatts_torch.experiments",
+    "metatts_torch.experiments.meta_advantage", "metatts_torch.experiments.meta_eer",
+    "metatts_torch.parallel", "metatts_torch.parallel.distributed"])
+def test_experiment_and_distributed_modules_are_checked(module):
+    """The synthetic corpus, the experiments and the distributed layer are
+    among the modules imported with JAX, flax, msgpack and optax blocked
+    above, and their files among those searched for its name; none imports
+    matplotlib or yaml at module level (the card machine has no matplotlib
+    and may lack PyYAML)."""
+    assert module in _modules()
+    base = os.path.join(ROOT, *module.split("."))
+    path = base + ".py" if os.path.exists(base + ".py") else os.path.join(base, "__init__.py")
+    assert path in set(_port_files())
+    with open(path) as f:
+        body = ast.parse(f.read()).body
+    top = [a.name for n in body if isinstance(n, ast.Import) for a in n.names]
+    top += [n.module for n in body if isinstance(n, ast.ImportFrom) and n.module]
+    assert not [n for n in top if n.split(".")[0] in ("matplotlib", "yaml")]
