@@ -91,16 +91,35 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
               the kernels against the same step through the plain versions,
               in bf16 and at fp32 compute (the kernels' fp32 path, under
               deterministic algorithms, with the plain step's own gap at
-              PyTorch's default algorithms);
-              ms per step, mel frames/s, peak memory; then one first-order
-              ``validation_step``;
+              PyTorch's default algorithms); ``length_regulate`` (a product
+              with the one-hot alignment) against the previous gather
+              version bit for bit, fp32 and bf16, with zero durations and
+              truncation; ms per step, mel frames/s, peak memory; then one
+              first-order ``validation_step``, and the same meta step as the
+              port ran it previously (gather, embeddings by index, cuDNN's
+              default algorithms) timed; then seven training steps (the
+              meta step in bf16 on this workload and in fp32 at the EER
+              experiment's config, the baseline step in bf16 at B=80 and in
+              fp32 at the EER config, the iMAML step in bf16, one step of
+              the test stage's ``adapt_first_order`` in bf16 and in fp32,
+              called with no flags set around it), each as previously and as
+              now: two calls' losses and gradients, and a census of the
+              ops that do not repeat themselves (every op that is neither
+              elementwise nor a view run twice on the same inputs, those
+              PyTorch documents as non-deterministic on the card, and
+              PyTorch's own warnings under ``warn_only`` deterministic
+              algorithms); now each step's two calls must agree bit for
+              bit and no such op may be left;
    imaml   -- ``IMAMLSystem.train_step`` at the same base configuration's
               full width and depth with imaml_emb_vad's adapt settings (5
               first-order inner steps on einsum attention, CG of 5 steps at
               reg 0.5) on the train phase's workload: the fp32 hypergradient
               (after its NaN-zeroing and clip) through the flash kernels
               against the same step through their plain versions under
-              deterministic algorithms; then one warm-up and 3 timed steps
+              deterministic algorithms; the same at a state where CG steps
+              (the EER config after 20 baseline steps: the CG steps taken
+              per episode, at least one, held at the meta-gradient's 1e-4);
+              then one warm-up and 3 timed steps
               with exactly 10 flash forward and 10 flash backward launches a
               step (the query's forward and its gradient; inner loop and CG
               run on einsum), finite losses, parameters that move, peak
@@ -230,6 +249,22 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
               every evaluation and synthesis on the fused block, counted;
               ms per step of each arm, per test task and step, per
               synthesis forward and Griffin-Lim call, seconds per stage;
+    meta_drift -- (in a process of its own, started before ``eval``
+              and collected after ``ddp``, so that its minutes run beside
+              theirs, whose ``[time]`` lines are marked contended) the card's meta-training trajectory against the CPU's
+              at the EER experiment's config (the JAX run's: hidden 32, 32
+              + 8 speakers, 4 episodes of 5 + 5, fp32): the meta arm of
+              ``run_experiment`` trained 50 outer steps on the card, then
+              10 more outer steps on the card and, from the same state
+              (weights, BatchNorm buffers, Adam's moments, the step, the
+              seed chain), on the CPU at 1 thread (in a process of its
+              own, ``chip_smoke.py --drift-cpu <state> <out>``, beside the
+              other two) and at the machine's thread count, on the same
+              episodes with dropout on (masks
+              from a CPU generator on both sides); per step the weights'
+              and the meta-gradient's rel L2 card vs CPU and CPU vs CPU,
+              and the losses; the card's weights within 10 x the CPU's own
+              gap (at least 1e-7) at every step;
 13. ddp    -- two ranks over gloo on the one card (``chip_smoke.py
               --ddp-rank <r> <store> <out>``; NCCL refuses two ranks on one
               device) against one process: a meta and an iMAML step of 2
@@ -284,21 +319,24 @@ GRAD_TOL = 0.25
 META_GRAD_TOL = 0.3
 # the same meta-gradient at fp32 compute, through the kernels' fp32 path,
 # with PyTorch's deterministic algorithms: there the step through the plain
-# versions repeats itself exactly, and the kernels move it by 7.2e-6 (only
-# the order of their sums differs), so 1e-4 leaves 14x.  With PyTorch's
-# default algorithms the step does not repeat itself: the same step through
-# the plain versions differs from its deterministic run by ~3e-2 (atomics in
-# backward kernels, amplified by the second-order meta-gradient; the train
-# phase prints it), which is what the bf16 bound above has to absorb.
+# versions repeats itself exactly, and only the order of the kernels' sums
+# differs.  At this random init the step amplifies rounding-level
+# differences by orders of magnitude, so the reading moves with rounding
+# elsewhere in the step (PERF.md, section 6): 7.195e-6 on the tree before
+# the steps were made repeatable, 8.883e-5 after it, and 8.883e-5 to
+# 8.886e-5 with the step flags, the one-hot regulator or the one-hot
+# embeddings undone, alone or all together.
 META_GRAD_TOL_F32 = 1e-4
 # the iMAML hypergradient at fp32 compute under deterministic algorithms.
 # At random init CG's first step meets p'Ap <= 0 and freezes (x = 0), so
 # the adapted modules' hypergradient is 0 and what is left is the frozen
 # encoder's query gradient at w*, clipped: a quantity that any change in
-# the order of the attention's sums moves by ~4e-3 (the card's readings:
-# the kernels 3.716e-3 from the plain versions, einsum attention 3.727e-3
-# from them, PERF.md section 6).  The meta-gradient's 1e-4 above
-# holds there only because its norm is the adapted modules' HVP terms'.
+# the order of the attention's sums moves far more than the meta-gradient
+# (the card's readings, PERF.md section 6: the kernels 2.334e-4 from the
+# plain versions, einsum attention 1.909e-4 from them; 3.716e-3 and
+# 3.727e-3 with cuDNN's convolutions and index ops).  The meta-gradient's
+# 1e-4 above holds there only because its norm is the adapted modules' HVP
+# terms'.
 IMAML_GRAD_TOL_F32 = 1e-2
 # the bf16 flash kernels against their plain versions, beside the TPU
 # tests' tolerances and set from the card's readings (PERF.md, section 6):
@@ -781,7 +819,10 @@ def breakdown(eng, texts, speakers, reps=3):
 FLASH_SHAPES = ((10, 896, 128, "bfloat16"), (10, 128, 128, "bfloat16"),
                 (4, 77, 128, "float32"),
                 # the baseline step's width: B=80 utterances x 2 heads
-                (160, 896, 128, "bfloat16"), (160, 128, 128, "bfloat16"))
+                (160, 896, 128, "bfloat16"), (160, 128, 128, "bfloat16"),
+                # the fp32 path on the EER experiment's query forward: 5
+                # queries x 2 heads of d_k 16, 48 mel frames and 16 symbols
+                (10, 48, 16, "float32"), (10, 16, 16, "float32"))
 # held against the plain versions but not timed: the serving cap (no
 # multiple of the 64-row tiles), a short ragged T, and a head width that is
 # a multiple of 8 and not of 16 (TMA zero-fills the tiles' columns past D)
@@ -1435,6 +1476,403 @@ def profile_step(system, sup, qry):
         print(f"[train]   {getattr(e, attr) / 1e3:9.2f} ms {e.count:6d}x  {e.key[:90]}")
 
 
+# ------------------------------------------------------- repeat (train)
+
+# aten ops whose CUDA kernels PyTorch documents as not repeating bit for bit
+# at its default settings (``torch.use_deterministic_algorithms``); the
+# census below also names any other op that, run twice on the same inputs,
+# gives two results
+DOCUMENTED_NONDETERMINISTIC = frozenset((
+    "scatter_add", "scatter_add_", "scatter", "scatter_", "scatter_reduce",
+    "scatter_reduce_", "index_add", "index_add_", "index_copy", "index_copy_",
+    "index_put[accumulate]", "index_put_[accumulate]", "_index_put_impl_[accumulate]",
+    "put_", "histc", "bincount", "embedding_bag", "_embedding_bag_backward",
+    "convolution[cudnn]", "convolution_backward[cudnn]", "cudnn_convolution",
+    "cudnn_batch_norm_backward",
+    "_cudnn_rnn_backward"))
+# ops whose outputs are not results (uninitialised memory, host reads, views
+# that share their input's storage), left out of the census' replay
+CENSUS_SKIP = ("empty", "new_empty", "_efficientzerotensor", "resize_", "set_",
+               "record_stream", "_local_scalar_dense", "detach", "lift_fresh", "alias")
+
+
+def _length_regulate_gather(x, durations, max_mel_len):
+    """The length regulator as the port had it before its steps repeated
+    themselves: one gather of each frame's phoneme (its backward a
+    scatter-add), frames past sum(d) zeroed.  The reference of the train
+    phase's bit-for-bit check and of its census of that formulation."""
+    import torch
+    cum = torch.cumsum(durations, dim=-1)
+    t = torch.arange(max_mel_len, dtype=cum.dtype, device=cum.device)
+    idx = (t[None, :, None] >= cum[:, None, :]).sum(-1).clamp(0, durations.shape[-1] - 1)
+    valid = t[None, :] < cum[:, -1:]
+    out = torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+    out = torch.where(valid[..., None], out, torch.zeros((), dtype=x.dtype, device=x.device))
+    return out, durations.sum(-1).clamp(max=max_mel_len).to(torch.int32)
+
+
+@contextlib.contextmanager
+def _previous_steps():
+    """Within the block the training steps run as the port ran them before
+    they repeated themselves ("previously" in the smoke's lines): the
+    gather length regulator, embeddings as an index (``F.embedding``), and
+    cuDNN at the process's settings (its default algorithms, fp32 compute
+    included)."""
+    import torch
+    from metatts_torch.algorithms import flags as FL
+    from metatts_torch.models import nn as L
+    from metatts_torch.models import variance_adaptor as VA
+    saved = VA.length_regulate, FL.step_flags, L.Embedding.forward
+    VA.length_regulate = _length_regulate_gather
+    FL.step_flags = lambda mcfg: contextlib.nullcontext()
+    L.Embedding.forward = torch.nn.Embedding.forward
+    try:
+        yield
+    finally:
+        VA.length_regulate, FL.step_flags, L.Embedding.forward = saved
+
+
+@contextlib.contextmanager
+def _cudnn_in_steps():
+    """Within the block a step keeps cuDNN at the process's setting (with
+    its deterministic algorithms) where ``step_flags`` would take it out of
+    fp32 compute: the earlier phases' "with cuDNN's convolutions" readings."""
+    import torch
+    from metatts_torch.algorithms import flags as FL
+    saved = FL.step_flags
+
+    @contextlib.contextmanager
+    def deterministic_only(mcfg):
+        cudnn = torch.backends.cudnn
+        old, cudnn.deterministic = cudnn.deterministic, True
+        try:
+            yield
+        finally:
+            cudnn.deterministic = old
+    FL.step_flags = deterministic_only
+    try:
+        yield
+    finally:
+        FL.step_flags = saved
+
+
+def _bits(t):
+    """``t`` as integers of its width (NaN-safe bit comparison)."""
+    import torch
+    return t.view({4: torch.int32, 2: torch.int16, 8: torch.int64}.get(t.element_size(), t.dtype)) \
+        if t.is_floating_point() else t
+
+
+def _same_bits(a, b):
+    import torch
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(_bits(a), _bits(b))
+
+
+def census(fn, replay=True, names=()):
+    """fn() with every aten op it dispatches (its backward's too) run twice
+    on the same inputs: name -> (calls, calls whose two results differ in a
+    bit), for each op that differed, that PyTorch documents as not
+    repeating on the card, or that ``names`` holds.  Random draws,
+    ``CENSUS_SKIP``, elementwise ops and views run once; without
+    ``replay`` every op does, and only the calls are counted."""
+    import collections
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten, tree_map
+
+    def differ(a, b):
+        """A 0-d tensor, on the device, nonzero where two results differ in
+        a bit (read once fn() has run: no synchronisation per op)."""
+        flags = [torch.ne(_bits(x), _bits(y)).any() for x, y in
+                 zip(tree_flatten(a)[0], tree_flatten(b)[0])
+                 if isinstance(x, torch.Tensor) and x.layout == torch.strided
+                 and x.device.type != "meta" and not x._is_zerotensor()
+                 and not y._is_zerotensor() and x.numel()]
+        return torch.stack(flags).any() if flags else None
+
+    class Replay(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.calls, self.flags = collections.Counter(), []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            name = func._schema.name.split("::")[-1]
+            if (torch.Tag.nondeterministic_seeded in func.tags
+                    or name.startswith(CENSUS_SKIP)):
+                return func(*args, **kwargs)
+            if name.startswith(("index_put", "_index_put_impl")) and (
+                    kwargs.get("accumulate") or (len(args) > 3 and args[3] is True)):
+                name += "[accumulate]"
+            if (name in ("convolution", "convolution_backward") and args[0].is_cuda
+                    and torch.backends.cudnn.enabled and not torch.backends.cudnn.deterministic):
+                name += "[cudnn]"
+            self.calls[name] += 1
+            if not replay or torch.Tag.pointwise in func.tags or (
+                    not func._schema.is_mutable
+                    and any(r.alias_info is not None for r in func._schema.returns)):
+                # elementwise, or a view of its input: the same bits every time
+                return func(*args, **kwargs)
+            if func._schema.is_mutable:
+                clone = lambda t: t.clone() if isinstance(t, torch.Tensor) else t
+                again = tree_map(clone, (args, kwargs))
+                out = func(*args, **kwargs)
+                func(*again[0], **again[1])
+                flag = differ((args, kwargs), again)
+            else:
+                out = func(*args, **kwargs)
+                flag = differ(out, func(*args, **kwargs))
+            if flag is not None:
+                self.flags.append((name, flag))
+            return out
+
+    mode = Replay()
+    with mode:
+        fn()
+    counts = collections.Counter(name for name, flag in mode.flags if bool(flag))
+    return {k: (n, counts[k]) for k, n in sorted(mode.calls.items())
+            if counts[k] or k in DOCUMENTED_NONDETERMINISTIC or k in names}
+
+
+def warned_ops(fn):
+    """The messages PyTorch raises for ops that have no deterministic
+    implementation, from fn() under ``use_deterministic_algorithms(True,
+    warn_only=True)`` (ops that have one switch to it silently, which is
+    what ``census`` is for)."""
+    import warnings
+    import torch
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).split(".")[0][:120] for w in caught
+                   if "deterministic" in str(w.message)})
+
+
+def _step_outputs(out):
+    """(LossValues or a loss, name -> gradient), or the name -> tensor dict
+    that ``adapt_first_order`` returns -> one name -> tensor dict."""
+    if isinstance(out, dict):
+        return {n: t.detach() for n, t in out.items()}
+    losses, grads = out
+    flat = {f"loss.{i}": v.detach() for i, v in enumerate(
+        losses if isinstance(losses, tuple) else (losses,))}
+    flat.update((n, g.detach()) for n, g in grads.items() if g is not None)
+    return flat
+
+
+def repeat_gap(fn):
+    """(rel L2 between two calls' losses and gradients, whether they are
+    equal bit for bit)."""
+    import torch
+    a, b = _step_outputs(fn()), _step_outputs(fn())
+    torch.cuda.synchronize()
+    return rel_l2(a, b), a.keys() == b.keys() and all(_same_bits(a[k], b[k]) for k in a)
+
+
+def _eer_draw(device):
+    """The EER experiment's configs (``EER_RUN``'s widths, fp32), its
+    corpus, and the first draw of ``run_experiment``'s data stream at seed
+    0 (the stream, then an episode batch of ``EER_META_BATCH`` train
+    speakers (5 + 5) and the baseline's flat batch of 40, on ``device``)."""
+    import numpy as np
+    from metatts_torch.data.synthetic import SyntheticVoices
+    from metatts_torch.experiments.meta_advantage import _configs
+    mcfg_args = (EER_RUN["n_mels"], 5, 1e-3, 1e-3, EER_META_BATCH, 5, 5, EER_RUN["saving_steps"])
+    cfgs = _configs(*mcfg_args, hidden=EER_RUN["hidden"])
+    corpus = SyntheticVoices(EER_RUN["n_train"] + EER_RUN["n_test"], n_mels=EER_RUN["n_mels"],
+                             seed=0)
+    rng = np.random.RandomState(1)
+    spk = rng.choice(range(EER_RUN["n_train"]), size=EER_META_BATCH, replace=False)
+    sup, qry = corpus.meta_batch(spk, 5, 5, rng, device)
+    batch = corpus.batch(list(rng.choice(range(EER_RUN["n_train"]), size=EER_META_BATCH * 10)),
+                         rng, device)
+    return cfgs, corpus, rng, sup, qry, batch
+
+
+def _eer_system(kind, cfgs, device):
+    import copy
+    from metatts_torch.algorithms import get_system
+    from metatts_torch.data.synthetic import STATS
+    pcfg, mcfg, tcfg, acfg = cfgs
+    return get_system(kind)(pcfg, copy.deepcopy(mcfg), tcfg, dict(copy.deepcopy(acfg), type=kind),
+                            stats=STATS, n_speakers=EER_RUN["n_train"] + EER_RUN["n_test"],
+                            seed=7, device=device)
+
+
+REPEAT_BASELINE_B = 80     # the baseline step's batch (bench_torch.py's)
+
+
+def check_repeats(system, sup, qry):
+    """The train phase's repeat checks (see the module docstring); returns
+    the ops found before."""
+    import copy
+    import numpy as np
+    import torch
+    from metatts_torch.algorithms.base import episode
+    from metatts_torch.algorithms.baseline import BaselineSystem
+    from metatts_torch.algorithms.imaml import IMAMLSystem
+    from metatts_torch.data.collate import map_batch
+
+    seed = 1234
+    n_mels = system.pcfg["preprocessing"]["mel"]["n_mel_channels"]
+    ia = copy.deepcopy(system.acfg)
+    ia.update(name="imaml_emb_vad", type="imaml")
+    ia["adapt"]["imaml"] = {"reg_param": IMAML_REG, "cg_steps": IMAML_CG_STEPS}
+    imaml = IMAMLSystem(system.pcfg, system.mcfg, system.tcfg, ia, n_speakers=N_SPEAKERS,
+                        seed=0, device="cuda")
+    base = BaselineSystem(system.pcfg, system.mcfg, system.tcfg,
+                          dict(system.acfg, type="baseline"), n_speakers=N_SPEAKERS, seed=0,
+                          device="cuda")
+    batch80 = episode(episode_batch(np.random.RandomState(2), 1, REPEAT_BASELINE_B, SRC_LEN,
+                                    MEL_LEN, n_mels, N_SPEAKERS), 0).to("cuda")
+    cfgs, _, _, e_sup, e_qry, e_batch = _eer_draw("cuda")
+    e_meta, e_base = _eer_system("meta", cfgs, "cuda"), _eer_system("baseline", cfgs, "cuda")
+    one = lambda b: map_batch(lambda t: t[:1], b)
+    # (tag, the step, what the census of the previous formulation runs: the
+    # step, its first episode, or None: the step with its calls counted, not
+    # replayed, where a replay of every op at T=896 would cost ~15 s)
+    base_bf16 = lambda: base._train_step(batch80, seed)
+    base_fp32 = lambda: e_base._train_step(e_batch, seed)
+
+    def test_step(s, sup_e):
+        """One step of the test stage's entry point on the support set:
+        the adapted weights it returns (no flags set here)."""
+        return lambda: s.adaptor.adapt_first_order(
+            s.params, sup_e, steps=1, lr=s.acfg["adapt"]["test"]["lr"], train=True, seed=seed)
+    test_bf16 = test_step(system, episode(sup, 0))
+    test_fp32 = test_step(e_meta, episode(e_sup, 0))
+    cases = (
+        ("meta step, bf16, train workload",
+         lambda: system._meta_train_step(sup, qry, seed), None),
+        ("meta step, fp32, EER config", lambda: e_meta._meta_train_step(e_sup, e_qry, seed),
+         lambda: e_meta._meta_train_step(one(e_sup), one(e_qry), seed)),
+        (f"baseline step, bf16, B={REPEAT_BASELINE_B}", base_bf16, base_bf16),
+        ("baseline step, fp32, EER config", base_fp32, base_fp32),
+        ("iMAML step, bf16, train workload", lambda: imaml._train_step(sup, qry, seed), None),
+        ("test step (adapt_first_order), bf16", test_bf16, test_bf16),
+        ("test step (adapt_first_order), fp32, EER config", test_fp32, test_fp32),
+    )
+    found, failed = {}, []
+    for tag, fn, replayed in cases:
+        t0 = time.perf_counter()
+        with _previous_steps():
+            gap_b, same_b = repeat_gap(fn)
+            before = census(fn, replay=False) if replayed is None else census(replayed)
+            warned = warned_ops(fn)
+        gap, same = repeat_gap(fn)
+        # now: any op found before, or documented, that the step still calls
+        left = census(fn, replay=False, names=found.keys() | before.keys())
+        for k, v in before.items():
+            found.setdefault(k, []).append(tag)
+        how = ("calls counted" if replayed is None else "each op run twice" + (
+            "" if replayed is fn else ", on the first episode"))
+        print(f"[train] repeat: {tag}: previously two calls rel L2 {gap_b:.3e} "
+              f"(bit for bit: {same_b}), non-deterministic ops ({how}) "
+              f"{', '.join(f'{k} {d}/{n}' for k, (n, d) in before.items()) or 'none'}, "
+              f"PyTorch's warnings {warned or 'none'}; now two calls rel L2 {gap:.3e} "
+              f"(bit for bit: {same}), non-deterministic ops "
+              f"{', '.join(f'{k} {d}/{n}' for k, (n, d) in left.items()) or 'none'} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        if not same or left:
+            failed.append(tag)
+    if failed:
+        raise AssertionError(f"training steps that do not repeat themselves: {failed}")
+    print(f"[train] repeat: the non-deterministic ops the training steps had previously: "
+          + "; ".join(f"{k} in {len(v)} of {len(cases)} steps" for k, v in found.items())
+          + "; none is left, and each step repeats itself bit for bit")
+    return found
+
+
+def check_length_regulator(sup):
+    """``length_regulate`` (the one-hot product) on the card against the
+    gather version, bit for bit, in fp32 and bf16: the train workload's
+    durations, the same with a third of them 0, and tripled (past T, so
+    truncated at T)."""
+    import torch
+    from metatts_torch.ops.length_regulator import length_regulate
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    d = sup.d_targets[0].to("cuda")
+    keep = torch.rand(d.shape, generator=gen, device="cuda") > 1 / 3
+    results = []
+    for tag, dd in (("workload", d), ("zeros", d * keep), ("truncated", 3 * d)):
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(d.shape[0], d.shape[1], BASE_SHAPE["D"], generator=gen,
+                            device="cuda").to(dt)
+            got, got_len = length_regulate(x, dd, MEL_LEN)
+            ref, ref_len = _length_regulate_gather(x, dd, MEL_LEN)
+            results.append((f"{tag} {str(dt)[6:]}", _same_bits(got, ref)
+                            and torch.equal(got_len, ref_len)))
+    print(f"[train] length_regulate (one-hot product) vs the gather version on the card, "
+          f"B={d.shape[0]}, L={d.shape[1]}, T={MEL_LEN}, H={BASE_SHAPE['D']}: "
+          + ", ".join(f"{t} {'bit for bit' if ok else 'DIFFERENT'}" for t, ok in results))
+    if not all(ok for _, ok in results):
+        raise AssertionError("length_regulate differs from the gather version")
+
+IMAML_CG_WARM = 20        # baseline steps at the EER config before the CG check
+
+
+def _cg_taken(fn):
+    """(fn(), per ``tree_cg`` call the number of iterations that stepped:
+    p'Ap > 1e-20, the rest frozen)."""
+    from metatts_torch.algorithms import imaml as IM
+    taken, tree_cg = [], IM.tree_cg
+
+    def counting(matvec, b, iters):
+        n = 0
+
+        def mv(p):
+            nonlocal n
+            ap = matvec(p)
+            n += bool(IM._dot(p, ap) > 1e-20)
+            return ap
+        x = tree_cg(mv, b, iters)
+        taken.append(n)
+        return x
+    IM.tree_cg = counting
+    try:
+        return fn(), taken
+    finally:
+        IM.tree_cg = tree_cg
+
+
+def check_imaml_cg():
+    """The fp32 iMAML hypergradient where CG steps: at the EER config after
+    ``IMAML_CG_WARM`` baseline steps, through the flash kernels against
+    their plain versions under deterministic algorithms."""
+    import torch
+    cfgs, corpus, rng, sup, qry, _ = _eer_draw("cuda")
+    cfgs[3]["adapt"]["imaml"] = {"reg_param": IMAML_REG, "cg_steps": IMAML_CG_STEPS}
+    base = _eer_system("baseline", cfgs, "cuda")
+    for _ in range(IMAML_CG_WARM):
+        base.train_step(corpus.batch(list(rng.choice(range(EER_RUN["n_train"]),
+                                                      size=EER_META_BATCH * 10)), rng, "cuda"))
+    imaml = _eer_system("imaml", cfgs, "cuda")
+    imaml.model.load_state_dict(base.model.state_dict())
+    step = lambda: imaml._train_step(sup, qry, 4321)
+    (_, g_k), taken_k = _deterministic(lambda: _cg_taken(lambda: through_flash(False, step)))
+    (_, g_p), taken_p = _deterministic(lambda: _cg_taken(lambda: through_flash(True, step)))
+    (_, g_p2), _ = _deterministic(lambda: _cg_taken(lambda: through_flash(True, step)))
+    gap, floor = rel_l2(g_k, g_p), rel_l2(g_p2, g_p)
+    modules = imaml.adaptor.modules
+    adapted = {n: g_p[n] for n in g_p if n.split(".")[0] in modules}
+    a_norm = math.sqrt(sum(float((g.double() ** 2).sum()) for g in adapted.values()))
+    print(f"[imaml] fp32 hypergradient where CG steps (the EER config, hidden 32, after "
+          f"{IMAML_CG_WARM} baseline steps, {EER_META_BATCH} episodes, CG {IMAML_CG_STEPS} at "
+          f"reg {IMAML_REG:g}; deterministic algorithms): CG steps taken per episode "
+          f"{taken_k} (plain versions {taken_p}); the adapted modules' hypergradient norm "
+          f"{a_norm:.4g}; through the kernels' fp32 path vs the plain versions rel L2 "
+          f"{gap:.3e} (tolerance {META_GRAD_TOL_F32:g}); the plain versions again {floor:.3e}")
+    if not (sum(taken_k) >= 1 and taken_k == taken_p and gap < META_GRAD_TOL_F32
+            and floor == 0.0 and a_norm > 0
+            and all(torch.isfinite(g).all() for g in g_k.values())):
+        raise AssertionError("the iMAML hypergradient where CG steps disagrees with the "
+                             "plain versions, or CG took no step")
+
+
 def phase_train():
     import copy
     import torch
@@ -1524,6 +1962,7 @@ def phase_train():
     for n, p in system.params.items():
         if not torch.equal(p, before[n]):
             raise AssertionError(f"computing a meta-gradient changed {n}")
+    check_length_regulator(sup)
 
     # the main path, counted: one warm-up step, then timed steps
     system.train_step(sup, qry)
@@ -1560,6 +1999,16 @@ def phase_train():
         raise AssertionError(f"non-finite validation losses {val}")
     print(f"[train] MetaSystem.validation_step (first order): total loss "
           f"{float(val.total):.4f}")
+    # the same step as the port ran it previously (``_previous_steps``),
+    # timed in this call after a warm-up
+    with _previous_steps():
+        system.train_step(sup, qry)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TIMED_STEPS):
+            system.train_step(sup, qry)
+        torch.cuda.synchronize()
+    ms_before = 1e3 * (time.perf_counter() - t0) / TIMED_STEPS
     print(f"[train] MetaSystem.train_step, base config, E={EPISODES}, {SHOTS} support + "
           f"{QUERIES} query, L={SRC_LEN}, T={MEL_LEN}, {INNER_STEPS} inner steps "
           f"(custom-HVP): {ms:.2f} ms per step, {frames} mel frames per step, "
@@ -1567,7 +2016,9 @@ def phase_train():
           f"flash launches {launches[0]} forward + {launches[1]} backward over "
           f"{TIMED_STEPS} steps; total loss {', '.join(f'{t:.4f}' for t in totals)}; "
           f"{moved} of {len(before)} parameter tensors moved; BatchNorm buffers "
-          f"unchanged")
+          f"unchanged; the step as previously (gather length regulator, embeddings by index, "
+          f"cuDNN's default algorithms) {ms_before:.2f} ms ({card_line()})")
+    check_repeats(system, sup, qry)
     return launches
 
 
@@ -2333,6 +2784,7 @@ def phase_imaml():
         raise AssertionError("the fp32 iMAML hypergradient through the kernels disagrees "
                              "with the plain versions")
     del sys32, g_k, g_p, g_p2, g_e, d_k, d_p
+    check_imaml_cg()
 
     # the main path, counted: one warm-up step, then timed steps
     system = IMAMLSystem(pcfg, mcfg, tcfg, acfg, n_speakers=N_SPEAKERS, seed=0,
@@ -3299,7 +3751,8 @@ def _first_step_gap(kind, mcfg_args, cudnn):
                     total, list(params.values()), allow_unused=True)))
             torch.backends.cudnn.enabled = cudnn or device == "cpu"
             try:
-                losses, g = _deterministic(step)
+                with _cudnn_in_steps() if cudnn else contextlib.nullcontext():
+                    losses, g = _deterministic(step)
             finally:
                 torch.backends.cudnn.enabled = True
             out.append((float(losses.total),
@@ -3495,6 +3948,188 @@ def phase_synth_eer():
     return tuple(c + w for c, w in zip(counts, wide_counts))
 
 
+# ---------------------------------------------------------- meta_drift
+
+DRIFT_RUN = dict(n_train=32, n_test=8, n_mels=8, hidden=32, layers=1, seed=0)  # the JAX run's
+DRIFT_WARM = 50           # outer steps of run_experiment's meta arm on the card first
+DRIFT_STEPS = 10          # then outer steps held card against CPU
+DRIFT_FACTOR, DRIFT_FLOOR = 10.0, 1e-7
+
+
+def _cpu_mask_dropout(x, rate, train, generator):
+    """``models.nn.dropout`` with its keep mask drawn on the CPU from a
+    generator seeded as the one it is given, then moved to ``x``'s device:
+    on the CPU the port's own masks, on the card the same masks."""
+    import torch
+    if not train or rate == 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    g = torch.Generator().manual_seed(generator.initial_seed())
+    mask = (torch.rand(x.shape, generator=g) < keep).to(x.device)
+    scale = torch.tensor(keep, dtype=x.dtype, device=x.device)
+    return torch.where(mask, x / scale, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _snapshot(system):
+    """A meta system's configs and state on the CPU: weights and BatchNorm
+    buffers, Adam's moments and count, the step and the seed chain."""
+    cpu = lambda d: {k: v.detach().cpu().clone() for k, v in d.items()}
+    return dict(cfgs=(system.pcfg, system.mcfg, system.tcfg, system.acfg, system.stats,
+                      system.model.speaker_emb.model.weight.shape[0]),
+                model=cpu(system.model.state_dict()), mu=cpu(system.optimizer.mu),
+                nu=cpu(system.optimizer.nu), count=system.optimizer.count,
+                step=system.global_step, rng=system._rng.get_state())
+
+
+def _restore(snap, device):
+    """The meta system of a ``_snapshot`` on ``device``."""
+    import copy
+    from metatts_torch.algorithms.meta import MetaSystem
+    pcfg, mcfg, tcfg, acfg, stats, n_speakers = snap["cfgs"]
+    s = MetaSystem(pcfg, copy.deepcopy(mcfg), tcfg, copy.deepcopy(acfg), stats=stats,
+                   n_speakers=n_speakers, seed=7, device=device)
+    s.model.load_state_dict({k: v.to(device) for k, v in snap["model"].items()})
+    s.optimizer.mu = {n: t.to(device).clone() for n, t in snap["mu"].items()}
+    s.optimizer.nu = {n: t.to(device).clone() for n, t in snap["nu"].items()}
+    s.optimizer.count, s.global_step = snap["count"], snap["step"]
+    s._rng.set_state(snap["rng"])
+    return s
+
+
+def drift_cpu(state, out):
+    """The ``meta_drift`` phase's CPU trajectory at 1 thread, in a process
+    of its own (``chip_smoke.py --drift-cpu <state> <out>``), so that it
+    runs beside the card's and the all-thread one."""
+    import torch
+    sys.path.insert(0, HERE)
+    from metatts_torch.models import nn as L
+    torch.set_num_threads(1)
+    snap = torch.load(state, weights_only=False)
+    L.dropout = _cpu_mask_dropout
+    t0 = time.perf_counter()
+    traj = _trajectory(_restore(snap, "cpu"), snap["episodes"], "cpu")
+    torch.save((traj, time.perf_counter() - t0), out)
+
+
+def _trajectory(system, episodes, device):
+    """``DRIFT_STEPS`` outer steps (``train_step``'s two halves, so that the
+    gradient is kept): per step (total loss, meta-gradient, weights) on the
+    CPU."""
+    out = []
+    for sup, qry in episodes:
+        losses, grads = system._meta_train_step(sup.to(device), qry.to(device),
+                                                system.next_rng())
+        system.apply_updates(grads)
+        out.append((float(losses.total),
+                    {n: g.detach().cpu() for n, g in grads.items() if g is not None},
+                    {n: p.detach().cpu().clone() for n, p in system.params.items()}))
+    return out
+
+
+def drift_start():
+    """Start the ``meta_drift`` phase's work (``drift_run``) in a process of
+    its own, beside the phases that follow; ``phase_meta_drift`` collects
+    it.  Returns (the process, its work directory, its start time)."""
+    import tempfile
+    work = tempfile.mkdtemp(prefix="meta_drift_")
+    with open(os.path.join(work, "log.txt"), "w") as log:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--meta-drift",
+                                 work], stdout=log, stderr=subprocess.STDOUT)
+    return proc, work, time.perf_counter()
+
+
+def drift_run(work):
+    """The ``meta_drift`` phase's work (``chip_smoke.py --meta-drift
+    <work>``): the meta arm of ``run_experiment`` trained ``DRIFT_WARM``
+    outer steps on the card, then ``DRIFT_STEPS`` more on the card, on the
+    CPU at the machine's thread count and, in a process of its own, at 1
+    thread, from the same state and on the same episodes, with the CPU's
+    dropout masks on every side; the trajectories go to ``<work>/result.pt``."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, HERE)
+    from metatts_torch.experiments import meta_advantage as MA
+    from metatts_torch.models import nn as L
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    out = MA.run_experiment(outer_steps=DRIFT_WARM, saving_steps=(1,), episodes_per_speaker=1,
+                            eval_queries=2, log_every=DRIFT_WARM, verbose=False,
+                            algorithms=("meta",), keep_systems=True, device="cuda", **DRIFT_RUN)
+    warm_s = time.perf_counter() - t0
+    system, corpus = out["_systems"]["meta"], out["_corpus"]
+    rng = np.random.RandomState(DRIFT_RUN["seed"] + 11)
+    episodes = [corpus.meta_batch(rng.choice(out["_train_speakers"], size=EER_META_BATCH,
+                                             replace=False), 5, 5, rng)
+                for _ in range(DRIFT_STEPS)]
+    snap = _snapshot(system)
+    state, traj_1 = os.path.join(work, "state.pt"), os.path.join(work, "cpu1.pt")
+    torch.save(dict(snap, episodes=episodes), state)
+    L.dropout = _cpu_mask_dropout
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--drift-cpu", state,
+                             traj_1])
+    try:
+        t1 = time.perf_counter()
+        on_card = _trajectory(system, episodes, "cuda")
+        card_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        again = _trajectory(_restore(snap, "cpu"), episodes, "cpu")
+        cpu_n_s = time.perf_counter() - t1
+        if proc.wait(timeout=900):
+            raise AssertionError(f"[meta_drift] the 1-thread CPU run failed ({proc.returncode})")
+        on_cpu, cpu_s = torch.load(traj_1, weights_only=False)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    torch.save(dict(card=on_card, cpu_1=on_cpu, cpu_n=again, warm_s=warm_s, card_s=card_s,
+                    cpu_s=cpu_s, cpu_n_s=cpu_n_s, threads=torch.get_num_threads()),
+               os.path.join(work, "result.pt"))
+
+
+def phase_meta_drift(started):
+    """The card's meta-training trajectory against the CPU's at the EER
+    experiment's config, from the process ``drift_start`` started; see the
+    module docstring."""
+    import torch
+    proc, work, t0 = started
+    card = card_line()
+    try:
+        if proc.wait(timeout=900):
+            with open(os.path.join(work, "log.txt")) as f:
+                print(f.read()[-4000:])
+            raise AssertionError(f"[meta_drift] its process failed ({proc.returncode})")
+        r = torch.load(os.path.join(work, "result.pt"), weights_only=False)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    threads = r["threads"]
+    print(f"[meta_drift] the meta arm of run_experiment at the JAX run's config "
+          f"({DRIFT_RUN}, 4 episodes of 5 + 5, 5 inner steps, fp32) after {DRIFT_WARM} outer "
+          f"steps on the card ({r['warm_s']:.1f} s, {card}), then {DRIFT_STEPS} outer steps on "
+          f"the card, on the CPU at 1 thread and at {threads}, from the same state, on the same "
+          f"episodes, dropout on with the CPU's masks ({r['card_s']:.1f} / {r['cpu_s']:.1f} / "
+          f"{r['cpu_n_s']:.1f} s; the 1-thread run in a process of its own beside the other "
+          f"two; all in a process beside the eval to ddp phases, "
+          f"{time.perf_counter() - t0:.1f} s from its start to here):")
+    bad = []
+    for k, ((lc, gc, pc), (l1, g1, p1), (ln, gn, pn)) in enumerate(
+            zip(r["card"], r["cpu_1"], r["cpu_n"])):
+        gap, noise = rel_l2(pc, p1), rel_l2(pn, p1)
+        bound = DRIFT_FACTOR * max(noise, DRIFT_FLOOR)
+        print(f"[meta_drift]   step {DRIFT_WARM + k + 1}: weights rel L2 card vs CPU {gap:.3e}, "
+              f"CPU {threads} vs 1 thread {noise:.3e} (bound {bound:.3e}); meta-gradient "
+              f"{rel_l2(gc, g1):.3e}, {rel_l2(gn, g1):.3e}; total loss card {lc:.6f}, "
+              f"CPU {l1:.6f} / {ln:.6f}")
+        if not (gap <= bound and math.isfinite(lc)):
+            bad.append(DRIFT_WARM + k + 1)
+    if len(r["card"]) != DRIFT_STEPS or bad:
+        raise AssertionError(f"[meta_drift] the card's weights leave {DRIFT_FACTOR:g}x the "
+                             f"CPU's own gap at steps {bad}")
+
+
 # ---------------------------------------------------------------- ddp
 
 DDP_WORLD = 2
@@ -3550,7 +4185,8 @@ def ddp_case(case, distributed, cudnn=True):
     args = (flat,) if case == "baseline" else (sup, qry)
     torch.backends.cudnn.enabled = cudnn
     try:
-        losses = _deterministic(lambda: system.train_step(*args))
+        with _cudnn_in_steps() if cudnn else contextlib.nullcontext():
+            losses = _deterministic(lambda: system.train_step(*args))
     finally:
         torch.backends.cudnn.enabled = True
     return (float(losses.total), {n: p.detach().cpu() for n, p in system.params.items()},
@@ -3645,13 +4281,16 @@ def phase_ddp():
     return tuple(counts)
 
 
-def with_time(phase):
-    """One phase, with its wall time."""
+def with_time(phase, note=""):
+    """One phase, with its wall time (and ``note`` after it)."""
     t0 = time.perf_counter()
     out = phase()
     print(f"[time] {getattr(phase, 'func', phase).__name__[len('phase_'):]}: "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{time.perf_counter() - t0:.1f} s{note}")
     return out
+
+
+CONTENDED = " (contended: beside meta_drift's processes)"
 
 
 def main():
@@ -3687,12 +4326,24 @@ def main():
         imaml_launches = with_time(phase_imaml)
         with_time(phase_hvp_fwd)
         test_launches = with_time(functools.partial(phase_test, corpus))
-        with_time(functools.partial(phase_eval, corpus))
-        fit_launches = with_time(functools.partial(phase_fit, corpus))
-        dvec_launches = with_time(functools.partial(phase_dvec, corpus))
-        lang_launches = with_time(phase_lang)
-        eer_launches = with_time(phase_synth_eer)
-        ddp_launches = with_time(phase_ddp)
+        drift = drift_start()
+        print("[meta_drift] started: the phases eval, fit, dvec, lang, synth_eer and ddp run "
+              "beside its processes (the card, a host thread each, and for ~1 minute all of "
+              "the host's threads), so their timings are contended and not comparable with a "
+              "run in which they run alone; their [time] lines say so")
+        try:
+            with_time(functools.partial(phase_eval, corpus), CONTENDED)
+            fit_launches = with_time(functools.partial(phase_fit, corpus), CONTENDED)
+            dvec_launches = with_time(functools.partial(phase_dvec, corpus), CONTENDED)
+            lang_launches = with_time(phase_lang, CONTENDED)
+            eer_launches = with_time(phase_synth_eer, CONTENDED)
+            ddp_launches = with_time(phase_ddp, CONTENDED)
+            with_time(functools.partial(phase_meta_drift, drift))
+        finally:
+            if drift[0].poll() is None:
+                drift[0].kill()
+                drift[0].wait()
+            shutil.rmtree(drift[1], ignore_errors=True)
     finally:
         shutil.rmtree(corpus[0], ignore_errors=True)
 
@@ -3713,7 +4364,9 @@ def main():
            for n in ("ms", "device_ms", "bound_ms")},
     }
     main_shape, text_shape = flash[FLASH_SHAPES[0]], flash[FLASH_SHAPES[1]]
-    wide = {"bh160": flash[FLASH_SHAPES[3]], "bh160_t128": flash[FLASH_SHAPES[4]]}
+    wide = {"bh160": flash[FLASH_SHAPES[3]], "bh160_t128": flash[FLASH_SHAPES[4]],
+            "f32_t77": flash[FLASH_SHAPES[2]], "f32_eer_t48": flash[FLASH_SHAPES[5]],
+            "f32_eer_t16": flash[FLASH_SHAPES[6]]}
     entries = [entry]
     for i, (name, line) in enumerate((("flash_attention_fwd", 95),
                                       ("flash_attention_bwd", 129))):
@@ -3754,5 +4407,11 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ddp-rank"]:     # a rank of the ddp phase
         ddp_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--meta-drift"]:   # the meta_drift phase's work
+        drift_run(sys.argv[2])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--drift-cpu"]:    # its 1-thread CPU run
+        drift_cpu(sys.argv[2], sys.argv[3])
         sys.exit(0)
     sys.exit(main())

@@ -14,6 +14,8 @@ loop's fast weights need no module copies.
 * BatchNorm running statistics are never written here: the support and
   query forwards normalise with batch statistics in training, as the JAX
   package's frozen state does.
+* ``adapt`` runs under ``flags.step_flags``, so that it repeats itself on
+  the card.
 """
 
 import torch
@@ -23,6 +25,7 @@ from torch.func import functional_call
 from ..models import nn as L
 from ..models.loss import fastspeech2_loss
 from ..models.phoneme_embedding import get_new_embedding
+from .flags import repeatable
 
 
 def partition(params, modules):
@@ -160,6 +163,7 @@ class Adaptor:
                            seed=seed, attention_impl=attention_impl)
         return self.loss(sup, out).total
 
+    @repeatable
     def adapt(self, params, sup, *, steps, lr, first_order, train, seed=None):
         """Inner-loop SGD on the adapted parameters; returns the merged
         dict.  Step i draws its dropout from seed ``split(seed, steps)[i]``.

@@ -23,6 +23,7 @@ from ..models.phoneme_embedding import PhonemeEmbedding
 from ..train.optim import NoamAdam
 from ..utils.tools import resolve_device
 from .adapt import Adaptor, episode_speaker_args
+from .flags import fp32_products
 
 # snapshot bytes that "auto" keeps on the device: the JAX package's default
 # off a TPU (``algorithms/base.py:170-172``), so both packages pick the same
@@ -59,11 +60,7 @@ class System:
         if isinstance(preprocess_cfg, list):
             preprocess_cfg = preprocess_cfg[0]
         self.device = resolve_device(device)
-        if self.device.type == "cuda" and model_cfg.get("compute_dtype", "float32") == "float32":
-            # fp32 compute means fp32 products, as in the JAX package: at
-            # PyTorch's default flags cuDNN runs fp32 convolutions in TF32,
-            # whose rounding the second-order meta-gradient amplifies
-            torch.backends.cudnn.allow_tf32 = False
+        fp32_products(model_cfg, self.device)
         self.pcfg = preprocess_cfg
         self.mcfg = model_cfg
         self.tcfg = train_cfg

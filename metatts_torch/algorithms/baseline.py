@@ -14,26 +14,26 @@ from ..data.collate import map_batch
 from ..models.loss import LossValues
 from ..parallel.distributed import row_shard
 from .base import System
+from .flags import repeatable
 
 
 class BaselineSystem(System):
     algorithm_type = "baseline"
 
-    def train_step(self, batch):
-        """One supervised step over a flat Batch: the training forward with
-        dropout (seeded from ``next_rng()``), which updates the postnet's
-        BatchNorm running statistics as the JAX step keeps its new state;
-        the loss; the gradient of every parameter, the encoder's included;
-        one optimizer step.  Returns LossValues.
+    @repeatable
+    def _train_step(self, batch, seed):
+        """The training forward with dropout from ``seed``, which updates
+        the postnet's BatchNorm running statistics as the JAX step keeps its
+        new state; the loss; the gradient of every parameter, the encoder's
+        included.  Returns (LossValues, name -> gradient).
 
         Under ``enable_distributed`` a rank computes its rows of the batch
         within ``row_shard``, so the losses' valid counts, the BatchNorm
         statistics and the dropout masks are the whole batch's, and the
         gradients and losses are summed over the ranks."""
-        batch = batch.to(self.device)
         self.model.train()
         params = self.params
-        seed, ctx = self.next_rng(), contextlib.nullcontext()
+        ctx = contextlib.nullcontext()
         if self.shard is not None:
             B = batch.texts.shape[0]
             lo, hi = self.shard.bounds(B, "batch_size")
@@ -46,5 +46,12 @@ class BaselineSystem(System):
         losses = [v.detach() for v in losses]
         if self.shard is not None:
             self.shard.all_reduce_(list(grads) + losses)
-        self.apply_updates(dict(zip(params, grads)))
-        return LossValues(*losses)
+        return LossValues(*losses), dict(zip(params, grads))
+
+    def train_step(self, batch):
+        """One supervised step over a flat Batch (``_train_step`` with the
+        next seed of the chain), then one optimizer step.  Returns
+        LossValues."""
+        losses, grads = self._train_step(batch.to(self.device), self.next_rng())
+        self.apply_updates(grads)
+        return losses

@@ -23,6 +23,7 @@ from ..models import nn as L
 from ..models.loss import LossValues
 from .adapt import episode_speaker_args, merge, partition
 from .base import System, episode
+from .flags import repeatable
 
 
 def _dot(a, b):
@@ -151,6 +152,7 @@ class IMAMLSystem(System):
                         + (0.0 if hf is None else -lr * hf))
         return hyper, LossValues(*(v.detach() for v in losses))
 
+    @repeatable
     def _train_step(self, sup, qry, seed):
         """sup / qry: Batches stacked on a leading episode axis E.  Returns
         (the episodes' mean LossValues, the mean hypergradient with its

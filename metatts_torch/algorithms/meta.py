@@ -11,6 +11,7 @@ import torch
 from ..models import nn as L
 from ..models.loss import LossValues
 from .base import System, episode
+from .flags import repeatable
 
 
 class MetaSystem(System):
@@ -23,6 +24,7 @@ class MetaSystem(System):
             seed=seed, phn_ref=phn_ref)
         return losses
 
+    @repeatable
     def _meta_train_step(self, sup, qry, seed, phn_ref=None):
         """sup / qry: Batches stacked on a leading episode axis E; phn_ref
         (E, vocab, d_feat) regenerates the phoneme table per episode for

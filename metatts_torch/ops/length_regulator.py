@@ -1,31 +1,53 @@
 """Length regulator: expand phoneme-level features by integer durations.
 
-Each output frame computes its source phoneme index in closed form and the
-expansion is one batched gather at a static length:
+Frame t of utterance b belongs to phoneme l where
 
-    cum[l]  = cumsum(d)[l]
-    idx[t]  = #{ l : cum[l] <= t }
-    out[t]  = x[idx[t]]  if t < sum(d) else 0
+    start[l] = cum[l] - d[l] <= t < cum[l],    cum = cumsum(d),
+
+the (B, T, L) one-hot alignment that the JAX package's
+``gather_phoneme_level`` builds.  The expansion is one batched product
+``A @ x`` at a static length:
+
+* its value is the JAX package's ``take_along_axis`` bit for bit, in fp32
+  and in bf16: each output element is one term plus zeros, and frames at or
+  past sum(d) have no term, so they are 0;
+* its gradient ``A^T g``, and every higher derivative, is a product whose
+  sums run in a fixed order, so a training step repeats itself on the card.
+  A gather's backward is a scatter-add, whose CUDA kernel adds with atomics
+  in whatever order the threads arrive, and the second-order meta step
+  differentiates through it twice.
+
+The product costs B * T * L * H multiply-adds (0.15 G at the train
+workload's 5 x 896 frames x 128 phonemes x 256 channels).  Under TF32
+matmuls an fp32 ``x`` would be rounded to TF32; the port leaves them off.
 """
 
 import torch
 
 
-def _frame_to_phone_idx(durations, max_mel_len):
-    """(B, L) int durations -> ((B, T) source index, (B, T) valid mask)."""
+def alignment(durations, n_frames):
+    """(B, L) int durations -> (B, n_frames, L) bool, True where frame t
+    belongs to phoneme l; frames at or past sum(d) belong to none."""
     cum = torch.cumsum(durations, dim=-1)                     # (B, L)
-    t = torch.arange(max_mel_len, dtype=cum.dtype, device=cum.device)
-    idx = (t[None, :, None] >= cum[:, None, :]).sum(-1)
-    valid = t[None, :] < cum[:, -1:]
-    idx = idx.clamp(0, durations.shape[-1] - 1)
-    return idx, valid
+    starts = cum - durations
+    t = torch.arange(n_frames, dtype=cum.dtype, device=cum.device)[None, :, None]
+    return (t >= starts[:, None, :]) & (t < cum[:, None, :])
 
 
 def length_regulate(x, durations, max_mel_len):
     """Expand (B, L, H) by (B, L) int durations -> ((B, T, H), (B,) mel_len)."""
-    idx, valid = _frame_to_phone_idx(durations, max_mel_len)
-    out = torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
-    out = torch.where(valid[..., None], out,
-                      torch.zeros((), dtype=x.dtype, device=x.device))
+    out = torch.bmm(alignment(durations, max_mel_len).to(x.dtype), x)
     mel_len = durations.sum(-1).clamp(max=max_mel_len).to(torch.int32)
     return out, mel_len
+
+
+def gather_phoneme_level(frame_feat, durations, src_len=None):
+    """Average frame-level (B, T) features to phoneme level (B, L) by
+    durations, in fp32: the transpose of ``length_regulate``, used where
+    pitch / energy are phoneme-averaged (reference
+    ``preprocessor.py:231-261``).  ``src_len`` is implied by
+    ``durations.shape[-1]``, as in the JAX package."""
+    del src_len
+    p = alignment(durations, frame_feat.shape[-1]).float()    # (B, T, L)
+    sums = torch.einsum("btl,bt->bl", p, frame_feat.float())
+    return sums / durations.float().clamp(min=1.0)

@@ -88,6 +88,11 @@ def dynamic_range_compression(x, C=1.0, clip_val=1e-5):
     return torch.log(torch.clamp(x, min=clip_val) * C)
 
 
+def dynamic_range_decompression(x, C=1.0):
+    """The inverse of ``dynamic_range_compression`` above its clip."""
+    return torch.exp(x) / C
+
+
 def reflect_pad(x, pad):
     """(..., T) -> (..., T + 2 pad) with numpy's ``mode="reflect"``,
     reflecting again where pad exceeds T - 1 (a gather, so exact)."""
