@@ -1448,7 +1448,8 @@ def device_profile(fn):
     """fn() under torch.profiler: (its wall ms, synchronised, the CUDA
     events of ``key_averages()``, each event's self device-time attribute)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+    from metatts_torch.utils.profiling import profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2065,7 +2066,8 @@ def phase_test(corpus):
     import copy
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+    from metatts_torch.utils.profiling import profile
     from metatts_torch import config as C
     from metatts_torch.algorithms.adapt import episode_speaker_args
     from metatts_torch.algorithms.base import episode

@@ -25,6 +25,7 @@ from torch.func import functional_call
 from ..models import nn as L
 from ..models.loss import fastspeech2_loss
 from ..models.phoneme_embedding import get_new_embedding
+from ..utils.profiling import span
 from .flags import repeatable
 
 
@@ -187,19 +188,21 @@ class Adaptor:
                 raise ValueError(f"hvp_mode {hvp_mode!r}: expected rev | fwd")
             names_a, names_f = list(adapted), list(frozen)
             for s in seeds:
-                step = _Step(self, names_a, names_f, lr, sup, train, s,
-                             fast_impl, inner_impl, hvp_mode)
-                out = _HVPStep.apply(step, *adapted.values(), *frozen.values())
-                adapted = dict(zip(names_a, out))
+                with span("metatts.meta.inner"):
+                    step = _Step(self, names_a, names_f, lr, sup, train, s,
+                                 fast_impl, inner_impl, hvp_mode)
+                    out = _HVPStep.apply(step, *adapted.values(), *frozen.values())
+                    adapted = dict(zip(names_a, out))
             return merge(adapted, frozen)
         impl = None if first_order else inner_impl
         for s in seeds:
-            loss = self._support_loss(adapted, frozen, sup, train, s, impl)
-            g = torch.autograd.grad(loss, list(adapted.values()),
-                                    create_graph=not first_order,
-                                    allow_unused=True)
-            adapted = {k: v if gi is None else v - lr * gi
-                       for (k, v), gi in zip(adapted.items(), g)}
+            with span("metatts.meta.inner"):
+                loss = self._support_loss(adapted, frozen, sup, train, s, impl)
+                g = torch.autograd.grad(loss, list(adapted.values()),
+                                        create_graph=not first_order,
+                                        allow_unused=True)
+                adapted = {k: v if gi is None else v - lr * gi
+                           for (k, v), gi in zip(adapted.items(), g)}
         return merge(adapted, frozen)
 
     def adapt_first_order(self, params, sup, *, steps, lr, train, seed=None):
@@ -242,11 +245,12 @@ class Adaptor:
             params = self.refresh_phoneme_table(params, phn_ref)
         adapted = self.adapt(params, sup, steps=steps, lr=lr,
                              first_order=not train, train=train, seed=r_adapt)
-        qry = qry._replace(speaker_args=episode_speaker_args(
-            sup.speaker_args, qry.speaker_args))
-        out = self.forward(adapted, qry, train=train, seed=r_qry,
-                           average_spk_emb=True)
-        return self.loss(qry, out), out
+        with span("metatts.meta.query"):
+            qry = qry._replace(speaker_args=episode_speaker_args(
+                sup.speaker_args, qry.speaker_args))
+            out = self.forward(adapted, qry, train=train, seed=r_qry,
+                               average_spk_emb=True)
+            return self.loss(qry, out), out
 
 
 def episode_speaker_args(sup_args, qry_args):

@@ -13,6 +13,7 @@ import torch
 from ..data.collate import map_batch
 from ..models.loss import LossValues
 from ..parallel.distributed import row_shard
+from ..utils.profiling import span
 from .base import System
 from .flags import repeatable
 
@@ -40,9 +41,11 @@ class BaselineSystem(System):
             batch = map_batch(lambda t: t[lo:hi], batch)
             ctx = row_shard(lo, hi, B)
         with ctx:
-            total, losses = self._supervised_loss(params, batch, seed, True,
-                                                  update_bn_state=True)
-            grads = torch.autograd.grad(total, list(params.values()), allow_unused=True)
+            with span("metatts.train.forward"):
+                total, losses = self._supervised_loss(params, batch, seed, True,
+                                                      update_bn_state=True)
+            with span("metatts.train.backward"):
+                grads = torch.autograd.grad(total, list(params.values()), allow_unused=True)
         losses = [v.detach() for v in losses]
         if self.shard is not None:
             self.shard.all_reduce_(list(grads) + losses)
@@ -50,8 +53,16 @@ class BaselineSystem(System):
 
     def train_step(self, batch):
         """One supervised step over a flat Batch (``_train_step`` with the
-        next seed of the chain), then one optimizer step.  Returns
-        LossValues."""
-        losses, grads = self._train_step(batch.to(self.device), self.next_rng())
-        self.apply_updates(grads)
+        next seed of the chain), then one optimizer step, under the root span
+        ``metatts.train.step`` (``utils/profiling.py``; the batch's copy to
+        the device, forward, backward and optimizer in spans of their own).
+        Returns LossValues."""
+        with span("metatts.train.step"):
+            with span("metatts.train.to_device"):
+                batch = batch.to(self.device)
+            losses, grads = self._train_step(batch, self.next_rng())
+            self.apply_updates(grads)
+            # the step's tensors are freed inside its root span, so the span
+            # holds all of the host's work of the step
+            del batch, grads
         return losses

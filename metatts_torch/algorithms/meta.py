@@ -10,6 +10,8 @@ import torch
 
 from ..models import nn as L
 from ..models.loss import LossValues
+from ..utils.profiling import span
+from ..utils.tools import to_device
 from .base import System, episode
 from .flags import repeatable
 
@@ -44,8 +46,9 @@ class MetaSystem(System):
         for e in self._episodes(n_episodes):
             lv = self._episode_loss(params, episode(sup, e), episode(qry, e), seeds[e], True,
                                     None if phn_ref is None else phn_ref[e])
-            g = torch.autograd.grad(lv.total / n_episodes,
-                                    [params[n] for n in names], allow_unused=True)
+            with span("metatts.meta.outer"):
+                g = torch.autograd.grad(lv.total / n_episodes,
+                                        [params[n] for n in names], allow_unused=True)
             grads = g if grads is None else [
                 b if a is None else a if b is None else a + b
                 for a, b in zip(grads, g)]
@@ -56,10 +59,14 @@ class MetaSystem(System):
 
     def train_step(self, sup_batch, qry_batch, phn_ref=None):
         """One meta step over episode-stacked support / query Batches (and,
-        for cross-lingual episodes, their (E, vocab, d_feat) ``phn_ref``).
+        for cross-lingual episodes, their (E, vocab, d_feat) ``phn_ref``),
+        under the root span ``metatts.meta.step`` (``utils/profiling.py``;
+        inside it ``metatts.meta.inner`` for each inner step,
+        ``metatts.meta.query`` and ``metatts.meta.outer`` for each episode).
         Returns the episodes' mean LossValues."""
-        losses, grads = self._meta_train_step(
-            sup_batch.to(self.device), qry_batch.to(self.device), self.next_rng(),
-            None if phn_ref is None else phn_ref.to(self.device))
-        self.apply_updates(grads)
+        with span("metatts.meta.step"):
+            losses, grads = self._meta_train_step(
+                sup_batch.to(self.device), qry_batch.to(self.device), self.next_rng(),
+                None if phn_ref is None else to_device(phn_ref, self.device))
+            self.apply_updates(grads)
         return losses

@@ -9,7 +9,8 @@ from typing import Any, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..utils.tools import pad_1d, pad_2d, bucket_length
+from ..utils.profiling import span
+from ..utils.tools import bucket_length, pad_1d, pad_2d, to_device
 
 TEXT_BUCKET = 32
 MEL_BUCKET = 128
@@ -27,7 +28,7 @@ class Batch(NamedTuple):
     d_targets: Optional[Any] = None
 
     def to(self, device):
-        return map_batch(lambda t: t.to(device), self)
+        return map_batch(lambda t: to_device(t, device), self)
 
 
 def map_batch(fn, batch):
@@ -67,6 +68,12 @@ def collate_batch(samples, max_seq_len=1000, with_mels=True,
     ``spk_ref_mel_slices`` (the d-vector speaker modes) give ``speaker_args
     = (ref (B, S, 160, 40) fp32, valid (B, S) bool)``: each utterance's
     slices zero-padded to S, the most of any sample unless fixed."""
+    with span("metatts.data.collate"):
+        return _collate(samples, max_seq_len, with_mels, fixed_text_len, fixed_mel_len,
+                        fixed_slices)
+
+
+def _collate(samples, max_seq_len, with_mels, fixed_text_len, fixed_mel_len, fixed_slices):
     src_lens = np.array([len(s["text"]) for s in samples], np.int32)
     L = fixed_text_len or bucket_length(int(src_lens.max()), TEXT_BUCKET)
     texts = pad_1d([s["text"] for s in samples], L).astype(np.int32)

@@ -18,7 +18,7 @@ from . import nn as L
 from .speaker_encoder import make_speaker_encoder
 from .transformer import Encoder, Decoder, PostNet, sinusoid_table
 from .variance_adaptor import VarianceAdaptor
-from ..utils.tools import get_mask_from_lengths
+from ..utils.tools import get_mask_from_lengths, to_device
 
 
 class FS2Output(NamedTuple):
@@ -89,9 +89,9 @@ class FastSpeech2(nn.Module):
         mel_valid = (get_mask_from_lengths(batch.mel_lens, max_mel_len)
                      if batch.mel_lens is not None else None)
         device = batch.texts.device
-        pos_table = torch.from_numpy(sinusoid_table(
+        pos_table = to_device(torch.from_numpy(sinusoid_table(
             max(cfg["max_seq_len"], max_mel_len) + 1,
-            cfg["transformer"]["encoder_hidden"])).to(device)
+            cfg["transformer"]["encoder_hidden"])), device, "metatts.wait.pos_table")
 
         r_enc, r_va, r_dec, r_post = L.split(seed, 4)
         x = self.encoder(batch.texts, src_valid, pos_table, fused_infer,

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel.distributed import current_row_shard, global_sum
+from ..utils.tools import to_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -284,7 +285,8 @@ def dropout(x, rate, train, generator):
     if shard is not None:
         mask = mask[shard.lo:shard.hi]
     # the keep rate in x's dtype, as JAX's weak typing rounds it
-    scale = torch.tensor(keep, dtype=x.dtype, device=x.device)
+    scale = to_device(torch.tensor(keep, dtype=x.dtype), x.device,
+                      "metatts.wait.dropout_scale")
     return torch.where(mask, x / scale, torch.zeros((), dtype=x.dtype,
                                                     device=x.device))
 

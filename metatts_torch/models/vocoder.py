@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from . import nn as L
+from ..utils.profiling import NULL, span
 
 LEAKY = 0.2
 
@@ -231,14 +232,32 @@ class Vocoder:
 
     @torch.no_grad()
     def infer(self, mels, max_wav_value=32768.0, lengths=None):
-        """mels (B, T, n_mels) tensor -> list of int16 numpy wavs."""
+        """mels (B, T, n_mels) tensor -> list of int16 numpy wavs.  The net
+        runs in the span ``metatts.vocoder.net`` (device time, with the
+        counts ``frames_run``, B x T, and ``frames_valid``, the frames of
+        ``lengths``), the host's wait for it on a card in
+        ``metatts.wait.vocoder``, the copy to the host in
+        ``metatts.to_host.wav``."""
         dev = next(self.net.parameters()).device
-        wavs = self.net(mels.to(dev).float()).cpu().numpy()
-        wavs = (wavs * max_wav_value).astype(np.int16)
-        out = []
-        for i in range(wavs.shape[0]):
-            w = wavs[i]
-            if lengths is not None:
-                w = w[: int(lengths[i])]
-            out.append(w)
+        with span("metatts.vocoder.net", device=True) as s:
+            wavs = self.net(mels.to(dev).float())
+            if s is not NULL:
+                # lengths are in samples, each a whole number of frames
+                B, T = mels.shape[:2]
+                hop = max(wavs.shape[1] // max(T, 1), 1)
+                s.count(frames_run=B * T, frames_valid=(
+                    B * T if lengths is None else sum(int(n) for n in lengths) // hop))
+        if wavs.is_cuda:
+            # the host waits for the net here, so that the copy's span holds
+            # the copy alone (a pageable copy would wait for it anyway)
+            with span("metatts.wait.vocoder", wait=True):
+                torch.cuda.current_stream(wavs.device).synchronize()
+        with span("metatts.to_host.wav", wait=True):
+            wavs = (wavs.cpu().numpy() * max_wav_value).astype(np.int16)
+            out = []
+            for i in range(wavs.shape[0]):
+                w = wavs[i]
+                if lengths is not None:
+                    w = w[: int(lengths[i])]
+                out.append(w)
         return out

@@ -24,6 +24,7 @@ from .data.collate import collate_batch
 from .models.fastspeech2 import FastSpeech2
 from .models.vocoder import Vocoder
 from .text import text_to_sequence
+from .utils.profiling import span
 from .utils.tools import resolve_device
 
 
@@ -70,28 +71,37 @@ class SynthesisEngine:
     def synthesize(self, texts, speakers=None, mel_cap=1000,
                    p_control=1.0, e_control=1.0, d_control=1.0):
         """texts: list of strings or pre-tokenized id arrays ->
-        list of (int16 wav, mel np.ndarray)."""
-        cleaners = self.pcfg["preprocessing"]["text"]["text_cleaners"]
-        samples = []
-        for i, t in enumerate(texts):
-            ids = (np.asarray(t, np.int32) if not isinstance(t, str)
-                   else np.asarray(text_to_sequence(t, cleaners), np.int32))
-            samples.append({
-                "id": f"synth_{i}",
-                "speaker": 0 if speakers is None else speakers[i],
-                "text": ids,
-                "raw_text": t if isinstance(t, str) else "",
-            })
-        batch, _ = collate_batch(samples, with_mels=False)
-        out = self.model(batch.to(self.device), teacher_forced=False,
-                         max_mel_len=mel_cap, p_control=p_control,
-                         e_control=e_control, d_control=d_control,
-                         fused_infer=True)
-        mels = out.postnet_mel
-        mel_lens = out.mel_lens.cpu().numpy()
-        wavs = self.vocoder.infer(mels, lengths=mel_lens * self.hop)
-        mels = mels.cpu().numpy()
-        return [(wavs[i], mels[i, : mel_lens[i]]) for i in range(len(texts))]
+        list of (int16 wav, mel np.ndarray).  A call is the root span
+        ``metatts.serve`` (``utils/profiling.py``): the front end, the
+        acoustic model on the device's clock, the waits for the lengths and
+        the copies to the host, and ``Vocoder.infer``'s spans."""
+        with span("metatts.serve"):
+            with span("metatts.serve.frontend"):
+                cleaners = self.pcfg["preprocessing"]["text"]["text_cleaners"]
+                samples = []
+                for i, t in enumerate(texts):
+                    ids = (np.asarray(t, np.int32) if not isinstance(t, str)
+                           else np.asarray(text_to_sequence(t, cleaners), np.int32))
+                    samples.append({
+                        "id": f"synth_{i}",
+                        "speaker": 0 if speakers is None else speakers[i],
+                        "text": ids,
+                        "raw_text": t if isinstance(t, str) else "",
+                    })
+                batch, _ = collate_batch(samples, with_mels=False)
+                batch = batch.to(self.device)
+            with span("metatts.serve.acoustic", device=True):
+                out = self.model(batch, teacher_forced=False,
+                                 max_mel_len=mel_cap, p_control=p_control,
+                                 e_control=e_control, d_control=d_control,
+                                 fused_infer=True)
+            mels = out.postnet_mel
+            with span("metatts.wait.mel_lens", wait=True):
+                mel_lens = out.mel_lens.cpu().numpy()
+            wavs = self.vocoder.infer(mels, lengths=mel_lens * self.hop)
+            with span("metatts.to_host.mel", wait=True):
+                mels = mels.cpu().numpy()
+            return [(wavs[i], mels[i, : mel_lens[i]]) for i in range(len(texts))]
 
     # ---------------------------------------------------- few-shot serving
 

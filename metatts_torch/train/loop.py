@@ -91,9 +91,10 @@ class Trainer:
         run that goes on.  ``train.profile``: "simple" (default) times every
         step and prints the ``[profile]`` line at the end, "trace" also
         writes a ``torch.profiler`` trace of steps 4-8 under
-        ``<log_dir>/profile``, "off" neither."""
+        ``<log_dir>/profile``, where the program's spans (``utils/profiling.py``
+        ``span``) show as host ranges, "off" neither."""
         from ..data.prefetch import Prefetcher
-        from ..utils.profiling import StepTimer, device_memory_stats, trace
+        from ..utils.profiling import StepTimer, device_memory_stats, span, trace
         system = self.system
         total = max_steps or self.steps["total_step"]
         log_every = self.steps["log_step"]
@@ -123,6 +124,7 @@ class Trainer:
 
         prof_mode = self.tcfg.get("profile", "simple")
         timer = StepTimer() if prof_mode != "off" else None
+        wait_timer = StepTimer() if timer else None   # the wait on the Prefetcher
         trace_cm = None
         t0 = time.time()
         t_warm = warm_step = None   # wall clock after the first step
@@ -133,14 +135,18 @@ class Trainer:
                     trace_cm.__enter__()
                 if timer:
                     timer.__enter__()
-                if meta:
+                    wait_timer.__enter__()
+                with span("metatts.data.wait", wait=True):
                     item = next(gen)
+                if timer:
+                    wait_timer.__exit__()
+                if meta:
                     sup, qry = item[:2]
                     # cross-lingual episodes carry their phoneme representations
                     losses = (system.train_step(sup, qry) if len(item) < 5
                               else system.train_step(sup, qry, phn_ref=item[4]))
                 else:
-                    batch, _ = next(gen)
+                    batch, _ = item
                     losses = system.train_step(batch)
                 step = system.global_step
                 if timer:
@@ -168,7 +174,8 @@ class Trainer:
             if trace_cm is not None:
                 trace_cm.__exit__(None, None, None)
         if main and timer and timer.stats():
-            self._log_profile(timer.stats(), device_memory_stats(), t_warm, warm_step)
+            self._log_profile(timer.stats(), device_memory_stats(), t_warm, warm_step,
+                              wait_timer.stats())
         return system
 
     def _log_step(self, step, total, losses, t0, timer):
@@ -184,10 +191,11 @@ class Trainer:
         print(f"step {step}/{total} total={float(losses.total):.4f} "
               f"mel={float(losses.mel):.4f} ({rate:.2f} it/s{prof})")
 
-    def _log_profile(self, s, mem, t_warm, warm_step):
+    def _log_profile(self, s, mem, t_warm, warm_step, wait):
         """The ``[profile]`` line: the StepTimer's stats (the step alone),
         the steps/s after the first step with validation, synthesis and
-        checkpoints included, and the peak device memory."""
+        checkpoints included, the step's wait on the Prefetcher (median and
+        p95; the StepTimer's steps include it) and the peak device memory."""
         step = self.system.global_step
         peak = max((m.get("peak_bytes_in_use") or 0 for m in mem.values()), default=0)
         e2e = ""
@@ -197,11 +205,13 @@ class Trainer:
             self.logger.log_metrics(step, {"profile/e2e_steps_per_sec": e2e_rate})
         print(f"[profile] {s['steps']} steps: mean {s['mean_ms']:.1f}ms "
               f"p50 {s['p50_ms']:.1f}ms p95 {s['p95_ms']:.1f}ms "
-              f"({s['steps_per_sec']:.2f} it/s{e2e})"
+              f"({s['steps_per_sec']:.2f} it/s{e2e}); "
+              f"data wait p50 {wait['p50_ms']:.2f}ms p95 {wait['p95_ms']:.2f}ms"
               + (f"; peak device memory {peak / 2**30:.2f} GiB" if peak else ""))
         self.logger.log_metrics(step, {
             "profile/final_mean_ms": s["mean_ms"],
             "profile/final_p95_ms": s["p95_ms"],
+            "profile/data_wait_ms": wait["p50_ms"],
             **({"profile/peak_hbm_bytes": peak} if peak else {})})
 
     # ---------------------------------------------------------- validate

@@ -16,6 +16,8 @@ chain, so a checkpoint of either package resumes in the other.
 import numpy as np
 import torch
 
+from ..utils.profiling import span
+
 f32 = torch.float32
 
 
@@ -53,7 +55,9 @@ class NoamAdam:
 
     ``step(params, grads)`` updates ``params`` (name -> tensor) in place from
     ``grads`` (name -> tensor, None for none); while gradients accumulate it
-    leaves them as they are.  ``schedule`` (step -> lr) replaces the Noam
+    leaves them as they are.  It runs in the span ``metatts.train.optimizer``
+    (``utils/profiling.py``), the clip's read of the norm in the wait span
+    ``metatts.wait.clip``.  ``schedule`` (step -> lr) replaces the Noam
     schedule of the configs, e.g. ``linear_warmup_schedule``.
     """
 
@@ -76,6 +80,10 @@ class NoamAdam:
 
     @torch.no_grad()
     def step(self, params, grads):
+        with span("metatts.train.optimizer"):
+            self._step(params, grads)
+
+    def _step(self, params, grads):
         grads = {n: (torch.zeros_like(self.mu[n]) if grads.get(n) is None
                      else grads[n].float()) for n in self.mu}
         if self.acc is not None:
@@ -89,7 +97,8 @@ class NoamAdam:
                 a.zero_()
             self.mini_step = 0
         g_norm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
-        clip = not bool(g_norm < self.clip)
+        with span("metatts.wait.clip", wait=True):
+            clip = not bool(g_norm < self.clip)
         self.count += 1
         k = torch.tensor(float(self.count), dtype=f32)
         c1 = (1.0 - torch.tensor(self.b1, dtype=f32) ** k).item()

@@ -8,6 +8,8 @@ import math
 import numpy as np
 import torch
 
+from .profiling import span
+
 
 def resolve_device(device):
     """``device`` as a torch.device; a CUDA device must exist."""
@@ -16,6 +18,16 @@ def resolve_device(device):
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run on the CPU")
     return device
+
+
+def to_device(t, device, name="metatts.wait.to_device"):
+    """``t.to(device)``.  A copy from the host's pageable memory to a CUDA
+    device waits for the card's queue to drain, so it runs in a wait span
+    ``name`` (``utils/profiling.py``); any other move runs as it is."""
+    if t.is_cuda or torch.device(device).type != "cuda":
+        return t.to(device)
+    with span(name, wait=True):
+        return t.to(device)
 
 
 def get_mask_from_lengths(lengths, max_len):

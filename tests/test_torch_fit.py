@@ -456,6 +456,8 @@ def test_fit_matches_jax(setup, tmp_path):
         _two_val_tasks(dm, log)
         trainer.fit()
     assert _tree(out["port"]) == _tree(out["jax"])
+    with open(os.path.join(out["port"], "log", "exp", "events.jsonl")) as f:
+        assert any("profile/data_wait_ms" in json.loads(line).get("metrics", {}) for line in f)
     tree = _tree(out["port"])
     assert [f for f in tree if f.startswith("ckpt")] == [
         "ckpt/exp/last.ckpt", "ckpt/exp/step_2.ckpt", "ckpt/exp/step_4.ckpt"]
