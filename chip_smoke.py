@@ -6,10 +6,10 @@
 Phases, each of which fails the run (non-zero exit) when it goes wrong:
 
 1. build   -- compiles ``metatts_torch/csrc/fftblock.cu``,
-              ``flash_attention.cu`` and ``melspec.cu`` (with the shared
-              ``hopper.cuh``) for sm_90a, one nvcc each, and the native
-              F0/FLAC library (``csrc/world.cpp``, ``csrc/flac.cpp``, g++),
-              all in parallel;
+              ``flash_attention.cu``, ``melspec.cu`` and ``adam.cu`` (with
+              the shared ``hopper.cuh``) for sm_90a, one nvcc each, and the
+              native F0/FLAC library (``csrc/world.cpp``, ``csrc/flac.cpp``,
+              g++), all in parallel;
    tf32    -- with PyTorch's global flags at their defaults (cuDNN's fp32
               convolutions in TF32), two sentences through
               ``SynthesisEngine(device="cuda").synthesize`` against the same
@@ -56,6 +56,19 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
               sits; kernel (a call, and device time in a CUDA graph), plain,
               bound and ``torch.stft``-route ms, the kernel faster than the
               ``torch.stft`` route at both 10 s shapes;
+   adam    -- NoamAdam's multi-tensor kernel (``ops/adam.py``, not run by
+              the benchmark's harness) over the base configuration's 216
+              leaves (34.94 M fp32 parameters, 1151 speakers): 3 steps at a
+              constant lr of 1e-3 from random gradients of global norm 4, 0.5
+              and 2 (the last with one leaf's gradient None), so clipped, not
+              clipped, clipped, at weight decay 0 and 0.01: after each step p,
+              mu and nu bit for bit those of the per-leaf loop fed the
+              kernel's norm, the norm within 1e-6 of the loop's, at most 8
+              launches; two runs from one start bit for bit; a step's host
+              time, a call's and its device time (CUDA graph) within twice
+              its byte bound, and the per-leaf loop's call; the main
+              path's own launches are counted in the train, fit, lang and
+              ddp phases (4 an optimizer step at the base configuration);
 5. preprocess -- a synthetic corpus from a seed (4 speakers x 8
               utterances whose mean length, 5.83 s, is LibriTTS
               train-clean-100's, with ``phones`` TextGrids) through
@@ -400,11 +413,11 @@ def block_bound(B, T, D, H, F, K):
             else "bytes", flops, nbytes)
 
 
-KERNEL_SOURCES = ("fftblock", "flash_attention", "melspec")
+KERNEL_SOURCES = ("fftblock", "flash_attention", "melspec", "adam")
 
 
 def phase_build():
-    from metatts_torch.ops import _build, attention, fftblock, melspec
+    from metatts_torch.ops import _build, adam, attention, fftblock, melspec
     from metatts_torch.preprocess import pitch
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNEL_SOURCES) + 1) as pool:
@@ -414,6 +427,7 @@ def phase_build():
     fftblock._lib()
     attention._lib()
     melspec._lib()
+    adam._lib()
     if pitch.f0_backend() != "native-dio":
         raise AssertionError("the native F0 library did not load")
     print(f"[build] {', '.join(n + '.cu' for n in KERNEL_SOURCES)} and the native "
@@ -1138,6 +1152,162 @@ def phase_mel():
         check_mel(torch.from_numpy(rng.uniform(-0.8, 0.8, (2, 22050)).astype(np.float32)).cuda(),
                   "n_fft {n_fft} hop {hop} win {win_length} mels {n_mels}".format(**cfg), cfg)
     return results
+
+
+# ---------------------------------------------------------------- adam
+
+# the benchmark's base configuration (perfbench/configs/metatts-libritts-base.json):
+# 216 leaves, 34.94 M fp32 parameters
+ADAM_SPEAKERS = 1151
+# (global norm of the step's gradients, the leaf left without a gradient):
+# clipped, not clipped, clipped with a None gradient
+ADAM_STEPS = ((4.0, None), (0.5, None), (2.0, "encoder.src_word_emb.weight"))
+ADAM_LR = 1e-3          # a constant rate, so that every step moves the weights
+ADAM_NORM_TOL = 1e-6    # the norm's sum in another order than PyTorch's
+
+
+def adam_bound(n):
+    """(the function's least ms, its bytes; the kernel's own bytes) of a step
+    over ``n`` fp32 parameters: g, p, mu and nu read and p, mu and nu written
+    once (the kernel reads g a second time for the norm)."""
+    nbytes = 7 * 4 * n
+    return 1e3 * nbytes / PEAK_BYTES, nbytes, 8 * 4 * n
+
+
+ADAM_BASE_LAUNCHES = 4  # an optimizer step over 216 leaves: a norm, its sum, 2 updates
+
+
+def _adam_zero():
+    from metatts_torch.ops import adam
+    adam.fused_adam.launches = 0
+
+
+def _adam_check(system, steps, where, per_step=None):
+    """Raise unless ``system``'s optimizer ran ``steps`` steps on its kernel
+    (``ops/adam.py``) since ``_adam_zero``: its table's launches (at most 8;
+    ``per_step`` where given) each.  Returns the launches counted."""
+    from metatts_torch.ops import adam
+    table = system.optimizer._table
+    each = None if table is None else table.launches
+    got = adam.fused_adam.launches
+    if each is None or each > 8 or (per_step is not None and each != per_step) \
+            or got != steps * each:
+        raise AssertionError(f"{where}: NoamAdam launched {got} kernels over {steps} "
+                             f"optimizer steps, not {steps} x {per_step or each}")
+    return got
+
+
+def phase_adam():
+    """NoamAdam's kernel (``ops/adam.py``) at the base configuration's leaves
+    against the per-leaf loop fed the kernel's norm, bit for bit; its
+    repeats; its time against its byte bound.  Returns the kernels entry."""
+    import copy
+    import torch
+    from metatts_torch import config as C
+    from metatts_torch.algorithms import get_system
+    from metatts_torch.ops import adam
+    from metatts_torch.train.optim import NoamAdam
+
+    pcfg, mcfg, acfg = C.base_configs()
+    system = get_system("baseline")(pcfg, copy.deepcopy(mcfg), C.TRAIN_DEFAULTS,
+                                    dict(copy.deepcopy(acfg), type="baseline"),
+                                    n_speakers=ADAM_SPEAKERS, seed=0, device="cuda")
+    start = {n: p.detach().clone() for n, p in system.params.items()}
+    del system
+    n_el = sum(p.numel() for p in start.values())
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    steps = []
+    for norm, drop in ADAM_STEPS:
+        g = {n: torch.randn(p.shape, generator=gen, device="cuda") for n, p in start.items()}
+        scale = norm / torch.sqrt(sum((x * x).sum() for x in g.values()))
+        steps.append({n: None if n == drop else x * scale for n, x in g.items()})
+    schedule = lambda step: torch.tensor(ADAM_LR, dtype=torch.float32)
+
+    def optimizer(weight_decay):
+        tcfg = copy.deepcopy(C.TRAIN_DEFAULTS)
+        tcfg["optimizer"]["weight_decay"] = weight_decay
+        params = {n: t.clone() for n, t in start.items()}
+        return params, NoamAdam(params, mcfg, tcfg, schedule=schedule)
+
+    def state(params, opt):
+        return [dict(params), dict(opt.mu), dict(opt.nu)]
+
+    for wd in (C.TRAIN_DEFAULTS["optimizer"]["weight_decay"], 0.01):
+        runs = []
+        for run in range(2):
+            params, opt = optimizer(wd)
+            ref_params, ref = optimizer(wd)
+            for k, grads in enumerate(steps):
+                before = adam.fused_adam.launches
+                opt.step(params, grads)
+                launches = adam.fused_adam.launches - before
+                g_norm = opt._table.scratch[0].clone()
+                dense = ref._dense(grads)
+                loop_norm = torch.sqrt(sum((g * g).sum() for g in dense.values()))
+                clip = not bool(g_norm < ref.clip)
+                ref.count += 1
+                ref._update(ref_params, dense, g_norm, clip, *ref._scalars(ref.count))
+                torch.cuda.synchronize()
+                gap = abs(g_norm.item() - loop_norm.item()) / loop_norm.item()
+                differ = [sum(int((a[n] != b[n]).sum()) for n in a)
+                          for a, b in zip(state(params, opt), state(ref_params, ref))]
+                moved = sum(int((params[n] != start[n]).sum()) for n in start)
+                if run == 0:
+                    print(f"[adam] weight_decay {wd}, step {k + 1}: g_norm {g_norm.item():.7g} "
+                          f"(loop {loop_norm.item():.7g}, rel {gap:.2e}), clipped {clip}, "
+                          f"{launches} launches for {len(start)} leaves; elements that differ "
+                          f"from the loop fed the kernel's norm: p {differ[0]}, mu "
+                          f"{differ[1]}, nu {differ[2]} of {n_el}; {moved} weights moved")
+                if (any(differ) or gap > ADAM_NORM_TOL or launches != opt._table.launches
+                        or launches > 8 or clip != (ADAM_STEPS[k][0] >= ref.clip)
+                        or moved < n_el // 2):
+                    raise AssertionError(f"NoamAdam's kernel disagrees with the per-leaf loop "
+                                         f"at weight_decay {wd}, step {k + 1}")
+            runs.append(state(params, opt))
+        same = all(torch.equal(a[n], b[n]) for a, b in zip(*runs) for n in a)
+        print(f"[adam] weight_decay {wd}: two runs from one start bit for bit: {same}")
+        if not same:
+            raise AssertionError("NoamAdam's kernel does not repeat itself")
+
+    # times at the base configuration's leaves and the first step's gradients
+    params, opt = optimizer(0.0)
+    grads = steps[0]
+    opt.step(params, grads)
+    table = opt._table
+    c1, c2, lr = opt._scalars(opt.count + 1)
+    kw = dict(clip=opt.clip, b1=opt.b1, b2=opt.b2, eps=opt.eps, weight_decay=0.0, lr=lr,
+              c1=c1, c2=c2)
+    call = lambda: adam.fused_adam(table, grads, **kw)
+    ms = call_ms(call)
+    dev_ms = graph_ms(call, tag="adam")
+    host = []
+    for _ in range(50):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.step(params, grads)
+        host.append(1e3 * (time.perf_counter() - t0))
+    host_ms = sorted(host)[len(host) // 2]
+
+    def loop():
+        dense = opt._dense(grads)
+        g_norm = torch.sqrt(sum((g * g).sum() for g in dense.values()))
+        opt._update(params, dense, g_norm, not bool(g_norm < opt.clip), c1, c2, lr)
+    plain_ms = cuda_ms(loop, iters=5, warmup=1)
+    bound, nbytes, kbytes = adam_bound(n_el)
+    print(f"[adam] {len(start)} leaves, {n_el} parameters: a step's host time "
+          f"(enqueue, median of 50) {host_ms:.4f} ms; a call {ms:.4f} ms, device "
+          f"{dev_ms if dev_ms is None else round(dev_ms, 4)} ms (CUDA graph of 20); the "
+          f"per-leaf loop {plain_ms:.4f} ms a call; bound {bound:.4f} ms (bytes, "
+          f"{nbytes / 1e9:.3f} GB; the kernel moves {kbytes / 1e9:.3f} GB)"
+          + (f": {100 * bound / dev_ms:.1f}% of it" if dev_ms else ""))
+    if dev_ms is None or dev_ms > 2 * bound:
+        raise AssertionError(f"NoamAdam's kernel: device time {dev_ms} ms, over twice its "
+                             f"bound {bound:.4f} ms")
+    return {"name": "fused_adam", "route": "cuda", "source": "metatts_torch/csrc/adam.cu",
+            "replaces": None, "ms": ms, "device_ms": dev_ms,
+            "host_ms": host_ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": None,
+            "shape": f"{len(start)} leaves, {n_el} fp32 parameters (the base configuration)"}
 
 
 # ---------------------------------------------------------------- preprocess
@@ -1970,6 +2140,7 @@ def phase_train():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     A.flash_attention_fwd.launches = A.flash_attention_bwd.launches = 0
+    _adam_zero()
     losses = []
     t0 = time.perf_counter()
     for _ in range(TIMED_STEPS):
@@ -1981,7 +2152,8 @@ def phase_train():
                                  f"backward kernels, not {n_layers} each")
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t0) / TIMED_STEPS
-    launches = (A.flash_attention_fwd.launches, A.flash_attention_bwd.launches)
+    launches = (A.flash_attention_fwd.launches, A.flash_attention_bwd.launches,
+                _adam_check(system, TIMED_STEPS, "[train]", ADAM_BASE_LAUNCHES))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
     totals = [float(l.total) for l in losses]
@@ -2014,8 +2186,8 @@ def phase_train():
           f"{QUERIES} query, L={SRC_LEN}, T={MEL_LEN}, {INNER_STEPS} inner steps "
           f"(custom-HVP): {ms:.2f} ms per step, {frames} mel frames per step, "
           f"{frames / ms * 1e3:.1f} mel frames/s, peak memory {peak:.2f} GiB; "
-          f"flash launches {launches[0]} forward + {launches[1]} backward over "
-          f"{TIMED_STEPS} steps; total loss {', '.join(f'{t:.4f}' for t in totals)}; "
+          f"flash launches {launches[0]} forward + {launches[1]} backward, NoamAdam's "
+          f"kernel {launches[2]}, over {TIMED_STEPS} steps; total loss {', '.join(f'{t:.4f}' for t in totals)}; "
           f"{moved} of {len(before)} parameter tensors moved; BatchNorm buffers "
           f"unchanged; the step as previously (gather length regulator, embeddings by index, "
           f"cuDNN's default algorithms) {ms_before:.2f} ms ({card_line()})")
@@ -2471,12 +2643,14 @@ def phase_fit(corpus):
     # the main path, counted
     A.flash_attention_fwd.launches = A.flash_attention_bwd.launches = 0
     fused_fft_block.launches = melspec.fused_mel_spectrogram.launches = 0
+    _adam_zero()
     t0 = time.perf_counter()
     trainer.fit()
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     launches = _flash_counts()
     others = (fused_fft_block.launches, melspec.fused_mel_spectrogram.launches)
+    adam_launches = _adam_check(system, FIT_STEPS, "[fit]", ADAM_BASE_LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     system.train_step, system.validation_step = own_step, own_val
 
@@ -2655,7 +2829,7 @@ def phase_fit(corpus):
           f"{meta_s:.2f} s; flash {m_steps[0]} a step, {m_vals[0]} a val task; total loss "
           + ", ".join(f"{float(r[1]):.3f}" for r in mrows))
     shutil.rmtree(out_dir, ignore_errors=True)
-    return launches + others
+    return launches + others + (adam_launches,)
 
 
 # ---------------------------------------------------------------- imaml
@@ -3214,10 +3388,12 @@ def phase_lang():
         log = []
         torch.cuda.synchronize()
         _flash_zero()
+        _adam_zero()
         t0 = time.perf_counter()
         losses = _counted(system.train_step, log)(sup, qry, phn_ref)
         torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t0)
+        _adam_check(system, 1, "[lang]")
         moved = (system.params[cb] != before[cb]).any(1)
         moved_rows = torch.nonzero(moved).flatten().tolist()
         if not (log == [(LANG_EPISODES * n_layers,) * 2] and moved_rows == picked
@@ -4181,7 +4357,9 @@ def ddp_case(case, distributed, cudnn=True):
 
     def record(g):      # the gradient the optimizer gets (summed over ranks)
         grads.update({n: v.detach().cpu() for n, v in g.items() if v is not None})
+        _adam_zero()
         apply(g)
+        _adam_check(system, 1, f"[ddp] {case}", ADAM_BASE_LAUNCHES)
     system.apply_updates = record
     _flash_zero()
     args = (flat,) if case == "baseline" else (sup, qry)
@@ -4321,6 +4499,7 @@ def main():
     kern = with_time(phase_kernel)
     flash = with_time(phase_flash)
     mel = with_time(phase_mel)
+    adam_entry = with_time(phase_adam)
     mel_launches, corpus = with_time(phase_preprocess)
     try:
         launches = with_time(phase_serve)
@@ -4398,6 +4577,8 @@ def main():
         **{k + "_b1": mel[MEL_SHAPES[1]][k]
            for k in ("ms", "plain_ms", "bound_ms", "library_ms", "device_ms")},
     })
+    entries.append({**adam_entry, "launches": flash_launches[2],
+                    "fit_launches": fit_launches[4]})
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

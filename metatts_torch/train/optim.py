@@ -16,6 +16,7 @@ chain, so a checkpoint of either package resumes in the other.
 import numpy as np
 import torch
 
+from ..ops.adam import LeafTable, fused_adam
 from ..utils.profiling import span
 
 f32 = torch.float32
@@ -55,9 +56,15 @@ class NoamAdam:
 
     ``step(params, grads)`` updates ``params`` (name -> tensor) in place from
     ``grads`` (name -> tensor, None for none); while gradients accumulate it
-    leaves them as they are.  It runs in the span ``metatts.train.optimizer``
-    (``utils/profiling.py``), the clip's read of the norm in the wait span
-    ``metatts.wait.clip``.  ``schedule`` (step -> lr) replaces the Noam
+    leaves them as they are.  Where the leaves lie on a CUDA device the step
+    is ``ops/adam.py``'s kernel: a few launches, the clip decided on the
+    card; every leaf and moment has to be a contiguous fp32 tensor on that
+    device and every gradient lie there in its leaf's shape (ValueError
+    otherwise).  On the CPU it is the plain per-leaf loop, whose clip reads
+    the norm on the host in the wait span ``metatts.wait.clip``.  It runs in
+    the span ``metatts.train.optimizer`` (``utils/profiling.py``), which
+    counts ``leaves_fused``, ``leaves_plain`` and the kernel's ``launches``
+    of each update.  ``schedule`` (step -> lr) replaces the Noam
     schedule of the configs, e.g. ``linear_warmup_schedule``.
     """
 
@@ -77,16 +84,16 @@ class NoamAdam:
         self.mini_step = 0
         self.acc = ({n: torch.zeros_like(p, dtype=f32) for n, p in params.items()}
                     if self.acc_steps > 1 else None)
+        self._table = None      # the kernel's LeafTable, while the leaves fit it
 
     @torch.no_grad()
     def step(self, params, grads):
-        with span("metatts.train.optimizer"):
-            self._step(params, grads)
+        with span("metatts.train.optimizer") as s:
+            self._step(params, grads, s)
 
-    def _step(self, params, grads):
-        grads = {n: (torch.zeros_like(self.mu[n]) if grads.get(n) is None
-                     else grads[n].float()) for n in self.mu}
+    def _step(self, params, grads, s):
         if self.acc is not None:
+            grads = self._dense(grads)
             for n, g in grads.items():
                 self.acc[n].add_((g - self.acc[n]) / (self.mini_step + 1))
             self.mini_step += 1
@@ -96,14 +103,38 @@ class NoamAdam:
             for a in self.acc.values():
                 a.zero_()
             self.mini_step = 0
+        table = self._table
+        if table is None or not table.holds(params, self.mu, self.nu):
+            table = self._table = LeafTable.build(params, self.mu, self.nu)
+        if table is not None:
+            c1, c2, lr = self._scalars(self.count + 1)
+            fused_adam(table, grads, clip=self.clip, b1=self.b1, b2=self.b2, eps=self.eps,
+                       weight_decay=self.weight_decay, lr=lr, c1=c1, c2=c2)
+            self.count += 1
+            s.count(leaves_fused=len(params), leaves_plain=0, launches=table.launches)
+            return
+        s.count(leaves_fused=0, leaves_plain=len(params), launches=0)
+        grads = self._dense(grads)
         g_norm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
         with span("metatts.wait.clip", wait=True):
             clip = not bool(g_norm < self.clip)
         self.count += 1
-        k = torch.tensor(float(self.count), dtype=f32)
+        self._update(params, grads, g_norm, clip, *self._scalars(self.count))
+
+    def _dense(self, grads):
+        return {n: (torch.zeros_like(self.mu[n]) if grads.get(n) is None
+                    else grads[n].float()) for n in self.mu}
+
+    def _scalars(self, count):
+        """(c1, c2, lr) of step ``count``: the bias corrections and the
+        negated learning rate, fp32 values as Python floats."""
+        k = torch.tensor(float(count), dtype=f32)
         c1 = (1.0 - torch.tensor(self.b1, dtype=f32) ** k).item()
         c2 = (1.0 - torch.tensor(self.b2, dtype=f32) ** k).item()
-        lr = -self.lr(self.count - 1).item()
+        return c1, c2, -self.lr(count - 1).item()
+
+    def _update(self, params, grads, g_norm, clip, c1, c2, lr):
+        """The per-leaf loop: clip (``clip``: by ``g_norm``), Adam, decay, lr."""
         for n, p in params.items():
             g = grads[n] / g_norm * self.clip if clip else grads[n]
             mu, nu = self.mu[n], self.nu[n]
