@@ -7,7 +7,9 @@ The test starts 2 gloo ranks once (this file run as a script, a
 ``file://`` store under ``tmp_path``, so no port is opened and parallel
 test workers cannot collide); each rank builds the same tiny systems
 (fp32, hidden 32, 1 + 1 layers, seed 3), enables distribution, runs every
-case on its shard and saves what it got.  The tests run the same cases in
+case on its shard and saves what it got; the test waits on both ranks
+against one deadline, ``RANK_DEADLINE``, and kills both when either fails
+or the deadline passes.  The tests run the same cases in
 one process and compare: a meta step (2 episodes), two baseline steps on a
 batch of 4 whose halves hold 78 and 21 valid mel frames (the losses divide
 by the whole batch's count, BatchNorm normalises with the whole batch's
@@ -31,6 +33,7 @@ import copy
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -48,6 +51,8 @@ TOL = 2e-4
 WORLD = 2
 STATS = {"pitch": [-2.0, 8.0, 0.0, 1.0], "energy": [-1.5, 8.0, 0.0, 1.0]}
 CASES = ("meta", "baseline", "imaml", "validation", "test_batched")
+# seconds both ranks get together: the whole test takes 19-41 s in the test suite
+RANK_DEADLINE = 180
 
 
 def _configs(kind):
@@ -166,24 +171,44 @@ def _rank_main(rank, store, out_dir):
     torch.distributed.destroy_process_group()
 
 
-def _ranks(d):
-    """Both ranks' results, from one start of the 2-rank group in ``d``."""
-    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=ROOT)
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), str(r),
-                               str(d / "store"), str(d)], env=env,
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-             for r in range(WORLD)]
-    logs = []
+def _start(cmd, log, env=None):
+    """Start ``cmd`` with its output (and errors) in the file ``log``, a
+    ``pathlib.Path``."""
+    with open(log, "wb") as f:
+        return subprocess.Popen(cmd, env=env, stdout=f, stderr=subprocess.STDOUT)
+
+
+def _wait_all(procs, logs, seconds):
+    """Wait for every process of ``procs`` against one deadline ``seconds``
+    from now.  When one exits non-zero or the deadline passes, kill the
+    others and fail with every process's log (``logs``, their files)."""
+    start = time.monotonic()
     try:
-        for p in procs:
-            logs.append(p.communicate(timeout=300)[0].decode(errors="replace"))
+        while (None in [p.poll() for p in procs] and not any(p.returncode for p in procs)
+               and time.monotonic() - start < seconds):
+            time.sleep(0.1)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for p, log in zip(procs, logs):
-        assert p.returncode == 0, log[-3000:]
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        head = (f"exit codes {codes} (-9: killed); the wait ended after "
+                f"{time.monotonic() - start:.1f} s of its {seconds} s deadline")
+        raise AssertionError("\n".join(
+            [head] + [f"--- process {i}:\n" + log.read_bytes().decode(errors="replace")[-3000:]
+                      for i, log in enumerate(logs)]))
+
+
+def _ranks(d):
+    """Both ranks' results, from one start of the 2-rank group in ``d``."""
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=ROOT)
+    logs = [d / f"rank{r}.log" for r in range(WORLD)]
+    procs = [_start([sys.executable, os.path.abspath(__file__), str(r),
+                     str(d / "store"), str(d)], logs[r], env)
+             for r in range(WORLD)]
+    _wait_all(procs, logs, RANK_DEADLINE)
     return [dict(np.load(d / f"rank{r}.npz")) for r in range(WORLD)]
 
 
@@ -216,8 +241,8 @@ def _check_indivisible_raises():
 def test_two_ranks_match_one_process(tmp_path):
     """Every case of the module docstring, in one test: pytest-xdist's
     ``--dist loadfile`` queues the files with the most tests first, so a
-    file of one test runs after the suite's longest single test has
-    started instead of ahead of it."""
+    file of few tests runs after the suite's long files have started
+    instead of ahead of them."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
@@ -227,6 +252,29 @@ def test_two_ranks_match_one_process(tmp_path):
             _check_case(case, ranks)
     finally:
         torch.set_num_threads(n)
+
+
+def test_a_child_that_never_exits_is_killed_at_the_deadline(tmp_path):
+    """``_ranks``'s wait kills a process that outlives the deadline and fails
+    with its log, instead of holding the test worker; a process that exits
+    non-zero ends the wait at once and takes the others down with it."""
+    sleeper = [sys.executable, "-c", "import time; time.sleep(600)"]
+    logs = [tmp_path / "sleep.log"]
+    procs = [_start(sleeper, logs[0])]
+    t0 = time.monotonic()
+    with pytest.raises(AssertionError, match=r"exit codes \[-9\] .* of its 2 s deadline"):
+        _wait_all(procs, logs, 2)
+    assert 2 <= time.monotonic() - t0 < 10
+    assert procs[0].returncode is not None
+
+    logs = [tmp_path / "sleep2.log", tmp_path / "fail.log"]
+    procs = [_start(sleeper, logs[0]),
+             _start([sys.executable, "-c", "raise SystemExit('rank died')"], logs[1])]
+    t0 = time.monotonic()
+    with pytest.raises(AssertionError, match="rank died"):
+        _wait_all(procs, logs, RANK_DEADLINE)
+    assert time.monotonic() - t0 < 30
+    assert procs[0].returncode is not None and procs[1].returncode == 1
 
 
 if __name__ == "__main__":

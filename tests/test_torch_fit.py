@@ -23,6 +23,7 @@ the same order, rtol 1e-6; loaders, trees and files exactly.
 """
 
 import copy
+import functools
 import json
 import os
 
@@ -598,16 +599,21 @@ def test_debug_cli_prints_the_jax_line(setup, tmp_path, capsys, kind):
 # ------------------------------------------------------- host utilities
 
 def test_prefetcher_yields_in_order_and_raises_the_producers_error():
+    """Every ``next`` waits on the producer thread, so each waits against a
+    deadline of its own: an item that never comes fails as ``queue.Empty``
+    after 30 s (the whole check takes milliseconds)."""
     from metatts_torch.data.prefetch import Prefetcher
 
     def gen():
         yield from range(5)
         raise RuntimeError("collation failed")
     p = Prefetcher(gen(), depth=2)
+    p._q.get = functools.partial(p._q.get, timeout=30)
     assert [next(p) for _ in range(5)] == list(range(5))
     with pytest.raises(RuntimeError, match="collation failed"):
         next(p)
     endless = Prefetcher(iter(range(10 ** 9)), depth=2)
+    endless._q.get = functools.partial(endless._q.get, timeout=30)
     assert next(endless) == 0
     endless.close()
     endless._thread.join(timeout=10)
